@@ -1,0 +1,117 @@
+"""The serving half of the model contract (counterpart of
+``edl_tpu/models/base.py``).
+
+A model is a ``ModelDef`` of plain functions, looked up by entrypoint
+name in a registry.  The JAX package's params are a pytree applied by
+``module.apply``; here the device-resident params are the ``nn.Module``
+itself, built from a ``state_dict`` by ``bind_params``.  Training
+fields (``loss_fn``, partition rules, FLOP accounting) and workspace
+loading come with the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+Batch = Dict[str, Any]
+StateDict = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class DecodeSpec:
+    """A model family's incremental-decode contract: the prefill and
+    decode functions the serving engine dispatches per padded bucket,
+    plus the cache geometry it allocates the paged KV pool from.
+
+    - ``prefill_fn(params, tokens[B,P], lengths[B], kpool, vpool,
+      tables[B,mb]) -> (ids[B], kpool, vpool)`` — run the prompt through
+      the normal causal forward once, write every layer's K/V into the
+      pool blocks, return the greedy next token read at each row's last
+      real position (``lengths - 1``).  ``P`` is a block-aligned padded
+      bucket.
+    - ``decode_fn(params, tokens[B], lengths[B], kpool, vpool, tables)
+      -> (ids[B], kpool, vpool)`` — one token of compute: write the
+      token's K/V at position ``lengths[i]``, attend over the cache
+      through the block table, return the next greedy id.
+
+    The JAX functions are pure (pools in, pools out, donated by the
+    engine).  Here the pools are written in place and the same tensors
+    come back.  Pools are ``[layers, num_blocks, block_tokens, heads,
+    head_dim]`` of ``cache_dtype``; ``max_len`` bounds prompt +
+    generated length (the positional-table range).  ``vocab_size``
+    bounds the token ids the engine admits (JAX clamps an out-of-range
+    lookup; on the card it is a device-side assert).
+    """
+
+    layers: int
+    heads: int
+    head_dim: int
+    max_len: int
+    cache_dtype: torch.dtype
+    prefill_fn: Callable[..., Tuple[Any, Any, Any]]
+    decode_fn: Callable[..., Tuple[Any, Any, Any]]
+    vocab_size: int
+
+
+@dataclass(frozen=True)
+class ModelDef:
+    """A servable model as plain functions.
+
+    - ``init_params(generator)`` -> seeded CPU ``state_dict`` (float32,
+      the flax ``param_dtype``; same layout ``convert.params_from_flax``
+      produces)
+    - ``bind_params(state_dict, device)`` -> the device-resident params
+      object ``predict_fn`` and the decode functions take (the module
+      with those weights loaded, in eval mode)
+    - ``synth_batch(rng, n)`` -> host-side numpy batch of size n
+    - ``predict_fn(params, inputs)`` -> forward-only outputs dict;
+      ``inputs`` holds exactly the ``predict_inputs`` keys as tensors
+    - ``decode`` -> the incremental-decode contract, or None
+    """
+
+    name: str
+    init_params: Callable[[torch.Generator], StateDict]
+    bind_params: Callable[[StateDict, Any], Any]
+    synth_batch: Callable[[np.random.RandomState, int], Batch]
+    predict_fn: Optional[Callable[[Any, Batch], Dict[str, Any]]] = None
+    predict_inputs: Tuple[str, ...] = ()
+    decode: Optional[DecodeSpec] = None
+
+
+_REGISTRY: Dict[str, Callable[..., ModelDef]] = {}
+
+
+def register_model(name: str):
+    def deco(factory: Callable[..., ModelDef]):
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def get_model(name: str, **kwargs) -> ModelDef:
+    """Build a registered model by entrypoint name."""
+    import edl_tpu_torch.models  # noqa: F401  (register built-ins)
+
+    factory = _REGISTRY.get(name)
+    if factory is None:
+        raise ValueError(
+            f"unknown model {name!r}; registered: {sorted(_REGISTRY)}"
+        )
+    model = factory(**kwargs)
+    if not isinstance(model, ModelDef):
+        raise ValueError(
+            f"model factory for {name!r} returned {type(model).__name__}, "
+            "not a ModelDef"
+        )
+    return model
+
+
+def registered_models():
+    import edl_tpu_torch.models  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,0 +1,302 @@
+"""Decoder-only transformer LM (counterpart of
+``edl_tpu/models/transformer_lm.py``): the serving half.
+
+The modules take a ``dtype`` like the flax ones and reproduce their
+numerics:
+
+- LayerNorms compute in float32 with eps 1e-6 (flax's default; torch's
+  is 1e-5);
+- the MLP activation is the tanh approximation of GELU (flax
+  ``nn.gelu``'s default; torch's default is erf);
+- Dense layers run in ``dtype`` (flax casts kernel, bias and input to
+  ``dtype``; here the weights are stored in ``dtype``), and the
+  residual stream is carried in ``dtype``;
+- the tied logits are ``dtype`` x ``dtype`` products summed in float32.
+
+The weight layout is torch's (``nn.Linear``: ``[out, in]``);
+``convert.py`` maps the flax tree (qkv kernel ``[D, 3, H, Dh]``, out
+kernel ``[H, Dh, D]``) onto it.  On CUDA, attention goes through the
+flash kernel at every length (``ops.fused_attention``).  Training
+(``loss_fn``, the fused cross entropy) and the sequence-parallel ring
+come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from edl_tpu_torch.models.base import (
+    DecodeSpec,
+    ModelDef,
+    StateDict,
+    register_model,
+)
+from edl_tpu_torch.models.decode import LayerKV, greedy_from_features
+from edl_tpu_torch.ops import fused_attention
+
+#: flax ``nn.LayerNorm``'s epsilon (torch's default is 1e-5)
+LN_EPS = 1e-6
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, num_heads: int, d_model: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.dtype = dtype
+        self.qkv = nn.Linear(d_model, 3 * d_model, dtype=dtype)
+        self.out = nn.Linear(d_model, d_model, dtype=dtype)
+
+    def forward(self, x, kv: Optional[LayerKV] = None):
+        b, t, _ = x.shape
+        qkv = self.qkv(x.to(self.dtype)).view(
+            b, t, 3, self.num_heads, self.head_dim
+        )
+        q, k, v = qkv.unbind(2)  # [B, T, H, Dh] strided views, no copy
+        if kv is not None:
+            # Incremental decode: this layer's K/V go into the paged
+            # pool.  Prefill keeps the module's own causal attention;
+            # decode attends over the cache.
+            kv.write(k, v)
+            out = fused_attention(q, k, v, causal=True) if kv.prefill else kv.attend(q)
+        else:
+            out = fused_attention(q, k, v, causal=True)
+        return self.out(out.to(self.dtype).reshape(b, t, -1))
+
+
+class LMBlock(nn.Module):
+    def __init__(self, num_heads: int, d_model: int, d_ff: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.attn = CausalSelfAttention(num_heads, d_model, dtype)
+        self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.wi = nn.Linear(d_model, d_ff, dtype=dtype)
+        self.wo = nn.Linear(d_ff, d_model, dtype=dtype)
+
+    def forward(self, x, kv: Optional[LayerKV] = None):
+        x = x + self.attn(self.ln1(x.float()), kv)
+        h = F.gelu(self.wi(self.ln2(x.float()).to(self.dtype)), approximate="tanh")
+        return x + self.wo(h)
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, vocab_size: int, d_model: int, d_ff: int,
+                 num_heads: int, num_layers: int, max_len: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.max_len = max_len
+        self.dtype = dtype
+        self.embed = nn.Embedding(vocab_size, d_model)
+        self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
+        self.layers = nn.ModuleList(
+            LMBlock(num_heads, d_model, d_ff, dtype) for _ in range(num_layers)
+        )
+        self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
+        self._logit_cache = None
+
+    def logit_weight(self, dtype) -> torch.Tensor:
+        """The tied embedding rounded through ``dtype`` and held in
+        float32, so ``features.to(dtype).float() @ w.t()`` is the
+        ``dtype`` x ``dtype`` -> float32 logits product.  Cached until
+        the embedding's storage or version changes (a weight load)."""
+        w = self.embed.weight
+        if dtype == torch.float32:
+            return w
+        key = (dtype, w.data_ptr(), w._version)
+        cache = self._logit_cache
+        if cache is None or cache[0] != key:
+            with torch.no_grad():
+                cache = (key, w.detach().to(dtype).float())
+            self._logit_cache = cache
+        return cache[1]
+
+    def forward(self, tokens, return_features: bool = False, kv=None):
+        """``tokens``: ``[B, T]`` int.  Returns ``[B, T, V]`` float32
+        logits, or the float32 pre-projection ``[B, T, D]`` features
+        when ``return_features``.
+
+        ``kv`` (incremental decode): ``(kpool, vpool, tables, lengths,
+        prefill)`` — pools ``[L, nb, bt, H, D]``, per-row block tables
+        and lengths (models/decode.py).  Prefill runs the causal
+        forward over the prompt while writing every layer's K/V into
+        the pool; decode takes ``tokens`` ``[B]`` (one token per row,
+        at position ``lengths[i]``) and attends through the block
+        table.  Returns ``(features, kpool, vpool)``; the pools are
+        written in place."""
+        if kv is not None:
+            kpool, vpool, tables, lengths, prefill = kv
+            if prefill:
+                t = tokens.shape[1]
+                x = self.embed(tokens) + self.pos_embed[None, :t]
+            else:
+                x = self.embed(tokens[:, None]) + self.pos_embed[lengths.long()][:, None]
+            x = x.to(self.dtype)
+            for i, layer in enumerate(self.layers):
+                x = layer(x, LayerKV(kpool[i], vpool[i], tables, lengths, prefill))
+            return self.ln_f(x.float()), kpool, vpool
+        t = tokens.shape[1]
+        x = (self.embed(tokens) + self.pos_embed[None, :t]).to(self.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        x = self.ln_f(x.float())
+        if return_features:
+            return x
+        return x.to(self.dtype).float() @ self.logit_weight(self.dtype).t()
+
+
+def lm_synth_batch(vocab: int, L: int):
+    """Deterministic periodic token stream (a copy of the JAX
+    package's numpy generator: same ``RandomState`` -> same bytes)."""
+
+    def synth_batch(rng: np.random.RandomState, n: int):
+        start = rng.randint(3, vocab - 8, size=(n, 1))
+        t = np.arange(L + 1)[None, :]
+        tokens = 3 + ((start - 3) + t) % (vocab - 3)
+        return {"tokens": tokens.astype(np.int32)}
+
+    return synth_batch
+
+
+def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+    return t
+
+
+def init_state_dict(vocab: int, d_model: int, d_ff: int, num_layers: int,
+                    max_len: int, g: torch.Generator) -> StateDict:
+    """Seeded float32 weights with flax's initializer distributions
+    (embedding N(0, 1), positions N(0, 0.02), Dense kernels lecun
+    normal, biases 0, LayerNorm scale 1).  The numbers differ from
+    ``jax.random``'s for the same seed; the parity tests carry JAX
+    weights over with ``convert.py`` instead."""
+    sd: Dict[str, torch.Tensor] = {
+        "embed.weight": torch.randn(vocab, d_model, generator=g),
+        "pos_embed": torch.randn(max_len, d_model, generator=g) * 0.02,
+    }
+    dense = {
+        "attn.qkv": (3 * d_model, d_model),
+        "attn.out": (d_model, d_model),
+        "wi": (d_ff, d_model),
+        "wo": (d_model, d_ff),
+    }
+    for i in range(num_layers):
+        p = f"layers.{i}."
+        for ln in ("ln1", "ln2"):
+            sd[p + ln + ".weight"] = torch.ones(d_model)
+            sd[p + ln + ".bias"] = torch.zeros(d_model)
+        for name, (out_f, in_f) in dense.items():
+            sd[p + name + ".weight"] = _lecun_normal((out_f, in_f), in_f, g)
+            sd[p + name + ".bias"] = torch.zeros(out_f)
+    sd["ln_f.weight"] = torch.ones(d_model)
+    sd["ln_f.bias"] = torch.zeros(d_model)
+    return sd
+
+
+def lm_decode_spec(heads: int, d_model: int, num_layers: int, L: int,
+                   vocab: int, dtype) -> DecodeSpec:
+    """KV-cached prefill/decode pair for a ``TransformerLM`` (the
+    ``params`` argument is the bound module)."""
+
+    def prefill_fn(params, tokens, lengths, kpool, vpool, tables):
+        feats, kp, vp = params(tokens, kv=(kpool, vpool, tables, lengths, True))
+        last = (lengths.long() - 1).clamp(0, tokens.shape[1] - 1)
+        ids = greedy_from_features(
+            feats, params.logit_weight(torch.bfloat16), positions=last
+        )
+        return ids, kp, vp
+
+    def decode_fn(params, tokens, lengths, kpool, vpool, tables):
+        feats, kp, vp = params(tokens, kv=(kpool, vpool, tables, lengths, False))
+        ids = greedy_from_features(feats, params.logit_weight(torch.bfloat16))
+        return ids, kp, vp
+
+    return DecodeSpec(
+        layers=num_layers,
+        heads=heads,
+        head_dim=d_model // heads,
+        max_len=L,
+        cache_dtype=dtype,
+        prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
+        vocab_size=vocab,
+    )
+
+
+@register_model("transformer_lm")
+def transformer_lm(
+    tiny: bool = False,
+    seq_len: Optional[int] = None,
+    dtype=torch.bfloat16,
+) -> ModelDef:
+    if tiny:
+        vocab, d_model, d_ff, heads, layers = 256, 64, 256, 4, 2
+        L = seq_len or 64
+    else:
+        vocab, d_model, d_ff, heads, layers = 32000, 768, 3072, 12, 12
+        L = seq_len or 2048
+    arch = dict(vocab_size=vocab, d_model=d_model, d_ff=d_ff,
+                num_heads=heads, num_layers=layers, max_len=L)
+
+    def init_params(g: torch.Generator) -> StateDict:
+        return init_state_dict(vocab, d_model, d_ff, layers, L, g)
+
+    def bind_params(state_dict: StateDict, device) -> TransformerLM:
+        # Built on the meta device and materialized uninitialized on the
+        # target, so binding pays no throwaway default init; the load
+        # casts each weight to its parameter's dtype.
+        with torch.device("meta"):
+            module = TransformerLM(**arch, dtype=dtype)
+        module = module.to_empty(device=device)
+        module.load_state_dict(state_dict)
+        return module.eval().requires_grad_(False)
+
+    def predict_fn(params, inputs) -> Dict[str, torch.Tensor]:
+        """Forward-only next-token prediction.  Request rows may carry
+        the training corpus's L+1 layout; the slice keeps the
+        positional table in range.  Greedy ids only."""
+        tokens = inputs["tokens"][:, :L]
+        x = params(tokens, return_features=True)
+        logits = x.to(torch.bfloat16).float() @ params.logit_weight(torch.bfloat16).t()
+        return {"tokens": torch.argmax(logits, dim=-1)}
+
+    return ModelDef(
+        name="transformer_lm",
+        init_params=init_params,
+        bind_params=bind_params,
+        synth_batch=lm_synth_batch(vocab, L),
+        predict_fn=predict_fn,
+        predict_inputs=("tokens",),
+        decode=lm_decode_spec(heads, d_model, layers, L, vocab, dtype),
+    )
+
+
+@register_model("longcontext_lm")
+def longcontext_lm(
+    tiny: bool = False,
+    seq_len: Optional[int] = None,
+    dtype=torch.bfloat16,
+) -> ModelDef:
+    """The same decoder-only family at the long-context length (4k
+    default, 128 tiny), registered under its own name."""
+    import dataclasses
+
+    base = transformer_lm(
+        tiny=tiny, seq_len=seq_len or (128 if tiny else 4096), dtype=dtype
+    )
+    return dataclasses.replace(base, name="longcontext_lm")
