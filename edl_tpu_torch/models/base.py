@@ -1,12 +1,12 @@
-"""The serving half of the model contract (counterpart of
-``edl_tpu/models/base.py``).
+"""The model contract (counterpart of ``edl_tpu/models/base.py``).
 
 A model is a ``ModelDef`` of plain functions, looked up by entrypoint
 name in a registry.  The JAX package's params are a pytree applied by
 ``module.apply``; here the device-resident params are the ``nn.Module``
-itself, built from a ``state_dict`` by ``bind_params``.  Training
-fields (``loss_fn``, partition rules, FLOP accounting) and workspace
-loading come with the training slice.
+itself, built from a ``state_dict``: by ``bind_params`` for serving
+(weights in the compute dtype, no gradients) and by ``train_params``
+for training (float32 parameters, as flax keeps them).  Partition
+rules and workspace loading come with later slices.
 """
 
 from __future__ import annotations
@@ -59,18 +59,28 @@ class DecodeSpec:
 
 @dataclass(frozen=True)
 class ModelDef:
-    """A servable model as plain functions.
+    """A model as plain functions.
 
     - ``init_params(generator)`` -> seeded CPU ``state_dict`` (float32,
       the flax ``param_dtype``; same layout ``convert.params_from_flax``
       produces)
     - ``bind_params(state_dict, device)`` -> the device-resident params
       object ``predict_fn`` and the decode functions take (the module
-      with those weights loaded, in eval mode)
+      with those weights loaded, in eval mode, no gradients)
     - ``synth_batch(rng, n)`` -> host-side numpy batch of size n
     - ``predict_fn(params, inputs)`` -> forward-only outputs dict;
       ``inputs`` holds exactly the ``predict_inputs`` keys as tensors
     - ``decode`` -> the incremental-decode contract, or None
+    - ``train_params(state_dict, device)`` -> the trainable module:
+      float32 parameters that take gradients, cast to the compute dtype
+      inside each product
+    - ``loss_fn(params, batch, generator)`` -> (scalar loss, aux metrics
+      dict) on a ``train_params`` module and a batch of tensors; aux
+      may carry ``valid_tokens``, the count of rows of the loss's
+      denominator (the trainer weights data-parallel gradients by it)
+    - ``flops_per_example`` (fwd+bwd matmul FLOPs, 0 = unknown) and
+      ``tokens_per_example`` (0 = not a token model) for MFU and
+      tokens/s accounting
     """
 
     name: str
@@ -80,6 +90,12 @@ class ModelDef:
     predict_fn: Optional[Callable[[Any, Batch], Dict[str, Any]]] = None
     predict_inputs: Tuple[str, ...] = ()
     decode: Optional[DecodeSpec] = None
+    train_params: Optional[Callable[[StateDict, Any], Any]] = None
+    loss_fn: Optional[
+        Callable[[Any, Batch, Optional[torch.Generator]], Tuple[Any, Dict[str, Any]]]
+    ] = None
+    flops_per_example: int = 0
+    tokens_per_example: int = 0
 
 
 _REGISTRY: Dict[str, Callable[..., ModelDef]] = {}

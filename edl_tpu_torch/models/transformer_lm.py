@@ -1,24 +1,27 @@
 """Decoder-only transformer LM (counterpart of
-``edl_tpu/models/transformer_lm.py``): the serving half.
+``edl_tpu/models/transformer_lm.py``): serving and training.
 
-The modules take a ``dtype`` like the flax ones and reproduce their
-numerics:
+The modules take a ``dtype`` and a ``param_dtype`` like the flax ones
+and reproduce their numerics:
 
 - LayerNorms compute in float32 with eps 1e-6 (flax's default; torch's
   is 1e-5);
 - the MLP activation is the tanh approximation of GELU (flax
   ``nn.gelu``'s default; torch's default is erf);
-- Dense layers run in ``dtype`` (flax casts kernel, bias and input to
-  ``dtype``; here the weights are stored in ``dtype``), and the
-  residual stream is carried in ``dtype``;
+- Dense layers run in ``dtype``: kernel, bias and input are cast to
+  ``dtype`` inside the product, as flax does, so the parameters can
+  stay in ``param_dtype`` (float32 for training, ``train_params``);
+  serving's ``bind_params`` stores them in ``dtype`` and the casts are
+  no-ops.  The residual stream is carried in ``dtype``;
 - the tied logits are ``dtype`` x ``dtype`` products summed in float32.
 
 The weight layout is torch's (``nn.Linear``: ``[out, in]``);
 ``convert.py`` maps the flax tree (qkv kernel ``[D, 3, H, Dh]``, out
 kernel ``[H, Dh, D]``) onto it.  On CUDA, attention goes through the
-flash kernel at every length (``ops.fused_attention``).  Training
-(``loss_fn``, the fused cross entropy) and the sequence-parallel ring
-come with later slices.
+flash kernels at every length (``ops.fused_attention``) and the loss
+through the fused cross-entropy kernels (``ops.best_vocab_xent``); the
+embedding's gradient is the lookup's plus the tied projection's dE.
+The sequence-parallel ring comes with a later slice.
 """
 
 from __future__ import annotations
@@ -38,24 +41,40 @@ from edl_tpu_torch.models.base import (
     register_model,
 )
 from edl_tpu_torch.models.decode import LayerKV, greedy_from_features
-from edl_tpu_torch.ops import fused_attention
+from edl_tpu_torch.ops import best_vocab_xent, fused_attention
 
 #: flax ``nn.LayerNorm``'s epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` whose product runs in ``dtype`` whatever its
+    parameters' dtype (flax ``nn.Dense(dtype=...)``: kernel, bias and
+    input cast to ``dtype``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, param_dtype):
+        super().__init__(in_features, out_features, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, num_heads: int, d_model: int, dtype=torch.bfloat16):
+    def __init__(self, num_heads: int, d_model: int, dtype=torch.bfloat16,
+                 param_dtype=None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.dtype = dtype
-        self.qkv = nn.Linear(d_model, 3 * d_model, dtype=dtype)
-        self.out = nn.Linear(d_model, d_model, dtype=dtype)
+        param_dtype = param_dtype or dtype
+        self.qkv = Dense(d_model, 3 * d_model, dtype, param_dtype)
+        self.out = Dense(d_model, d_model, dtype, param_dtype)
 
     def forward(self, x, kv: Optional[LayerKV] = None):
         b, t, _ = x.shape
-        qkv = self.qkv(x.to(self.dtype)).view(
+        qkv = self.qkv(x).view(
             b, t, 3, self.num_heads, self.head_dim
         )
         q, k, v = qkv.unbind(2)  # [B, T, H, Dh] strided views, no copy
@@ -72,25 +91,25 @@ class CausalSelfAttention(nn.Module):
 
 class LMBlock(nn.Module):
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
-        self.dtype = dtype
+        param_dtype = param_dtype or dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.attn = CausalSelfAttention(num_heads, d_model, dtype)
+        self.attn = CausalSelfAttention(num_heads, d_model, dtype, param_dtype)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.wi = nn.Linear(d_model, d_ff, dtype=dtype)
-        self.wo = nn.Linear(d_ff, d_model, dtype=dtype)
+        self.wi = Dense(d_model, d_ff, dtype, param_dtype)
+        self.wo = Dense(d_ff, d_model, dtype, param_dtype)
 
     def forward(self, x, kv: Optional[LayerKV] = None):
         x = x + self.attn(self.ln1(x.float()), kv)
-        h = F.gelu(self.wi(self.ln2(x.float()).to(self.dtype)), approximate="tanh")
+        h = F.gelu(self.wi(self.ln2(x.float())), approximate="tanh")
         return x + self.wo(h)
 
 
 class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, d_model: int, d_ff: int,
                  num_heads: int, num_layers: int, max_len: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, param_dtype=None):
         super().__init__()
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -101,7 +120,8 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         self.layers = nn.ModuleList(
-            LMBlock(num_heads, d_model, d_ff, dtype) for _ in range(num_layers)
+            LMBlock(num_heads, d_model, d_ff, dtype, param_dtype)
+            for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self._logit_cache = None
@@ -167,6 +187,32 @@ def lm_synth_batch(vocab: int, L: int):
         return {"tokens": tokens.astype(np.int32)}
 
     return synth_batch
+
+
+def lm_flops(vocab: int, d_model: int, d_ff: int, layers: int, L: int) -> int:
+    """Executed matmul FLOPs per example for a decoder LM (fwd+bwd): the
+    per-token layer matmuls, the causal attention score/PV terms (causal
+    halves the T^2 work) and the tied vocab projection (a copy of the
+    JAX package's formula, so MFU is counted the same way)."""
+    params_per_layer = 4 * d_model * d_model + 2 * d_model * d_ff
+    return (
+        6 * (layers * params_per_layer + vocab * d_model) * L
+        + 12 * layers * L * L * d_model // 2
+    )
+
+
+def lm_loss_fn(params, batch, generator=None):
+    """Next-token loss of a ``TransformerLM`` on ``batch["tokens"]``
+    ``[B, L+1]``: features of ``tokens[:, :-1]``, labels
+    ``tokens[:, 1:]``, label 0 masked out, tied-vocab cross entropy
+    (``best_vocab_xent``).  The model is deterministic, so
+    ``generator`` is unused.  Returns ``(loss, {"loss", "valid_tokens"})``."""
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:]
+    x = params(tokens[:, :-1], return_features=True)
+    valid = labels != 0
+    loss, _ = best_vocab_xent(x, params.embed.weight, labels, valid)
+    return loss, {"loss": loss, "valid_tokens": valid.sum()}
 
 
 def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
@@ -256,15 +302,21 @@ def transformer_lm(
     def init_params(g: torch.Generator) -> StateDict:
         return init_state_dict(vocab, d_model, d_ff, layers, L, g)
 
-    def bind_params(state_dict: StateDict, device) -> TransformerLM:
+    def _module(state_dict: StateDict, device, param_dtype) -> TransformerLM:
         # Built on the meta device and materialized uninitialized on the
         # target, so binding pays no throwaway default init; the load
         # casts each weight to its parameter's dtype.
         with torch.device("meta"):
-            module = TransformerLM(**arch, dtype=dtype)
+            module = TransformerLM(**arch, dtype=dtype, param_dtype=param_dtype)
         module = module.to_empty(device=device)
         module.load_state_dict(state_dict)
-        return module.eval().requires_grad_(False)
+        return module
+
+    def bind_params(state_dict: StateDict, device) -> TransformerLM:
+        return _module(state_dict, device, dtype).eval().requires_grad_(False)
+
+    def train_params(state_dict: StateDict, device) -> TransformerLM:
+        return _module(state_dict, device, torch.float32).train()
 
     def predict_fn(params, inputs) -> Dict[str, torch.Tensor]:
         """Forward-only next-token prediction.  Request rows may carry
@@ -283,6 +335,10 @@ def transformer_lm(
         predict_fn=predict_fn,
         predict_inputs=("tokens",),
         decode=lm_decode_spec(heads, d_model, layers, L, vocab, dtype),
+        train_params=train_params,
+        loss_fn=lm_loss_fn,
+        flops_per_example=lm_flops(vocab, d_model, d_ff, layers, L),
+        tokens_per_example=L,
     )
 
 

@@ -1,9 +1,11 @@
-"""Hot-path ops of the port: attention and its hand-written kernel."""
+"""Hot-path ops of the port: attention and the tied-vocab loss, with
+their hand-written kernels."""
 
 from edl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_with_lse,
 )
+from edl_tpu_torch.ops.losses import best_vocab_xent, tied_vocab_xent
 from edl_tpu_torch.ops.ring_attention import reference_attention
 
 
@@ -26,8 +28,10 @@ def fused_attention(q, k, v, causal=False, scale=None, kv_mask=None):
 
 
 __all__ = [
+    "best_vocab_xent",
     "flash_attention",
     "flash_attention_with_lse",
     "fused_attention",
     "reference_attention",
+    "tied_vocab_xent",
 ]

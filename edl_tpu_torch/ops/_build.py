@@ -21,13 +21,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd", "fused_xent")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, Callable[..., int]] = {}
 
 
 def nvcc() -> str:
@@ -111,10 +112,22 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it first if
-    needed.  The caller declares the functions' ``argtypes``."""
+    needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """C function ``symbol`` of kernel ``name``'s library, declared with
+    ``argtypes`` and returning its ``cudaError_t`` as an int."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn

@@ -1,20 +1,21 @@
-"""Flash attention forward (counterpart of
+"""Flash attention forward and backward (counterpart of
 ``edl_tpu/ops/flash_attention.py``).
 
 Public functions take and return the JAX package's layout:
 ``q, k, v`` are ``[B, T, H, D]``; ``flash_attention_with_lse`` returns
-``(o [B, Tq, H, D], lse [B, H, Tq] float32)``.
+``(o [B, Tq, H, D], lse [B, H, Tq] float32)``, both differentiable.
 
-- On a CUDA tensor they launch the hand-written kernel
-  ``csrc/flash_fwd.cu`` (built at first use, see ``_build``), which
-  replaces the TPU kernel ``_fwd_kernel``.  Anything the kernel does
-  not take raises; nothing falls back to the plain version.
-- On a CPU tensor they run ``flash_attention_plain``, the plain PyTorch
-  version of the same function (what the CPU tests check against the
-  JAX kernel in interpret mode).
-
-The backward kernels (``_bwd_kernel``, ``_bwd_streamk_kernel``) come
-with the training slice: the autograd function's backward raises.
+- On a CUDA tensor the forward launches the hand-written kernel
+  ``csrc/flash_fwd.cu`` (replacing the TPU kernel ``_fwd_kernel``) and
+  the backward ``csrc/flash_bwd.cu`` (replacing the merged backward
+  ``_bwd_kernel``), both built at first use (see ``_build``).  Anything
+  the kernels do not take raises; nothing falls back to the plain
+  versions.  Shapes for which the JAX package takes its streaming-K
+  backward (``_bwd_streamk_kernel``, not ported yet) raise in the
+  backward rather than run the merged one in its place.
+- On a CPU tensor they run ``flash_attention_plain`` and
+  ``flash_bwd_plain``, the plain PyTorch versions of the same functions
+  (what the CPU tests check against the JAX kernels in interpret mode).
 """
 
 from __future__ import annotations
@@ -31,13 +32,25 @@ from edl_tpu_torch.ops.ring_attention import NEG_INF
 #: where it launches its kernel and nowhere else; a run that resets the
 #: counts before a path and reads them after shows which kernels the
 #: path went through.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_BLOCKS_Y = 65535
 
-_fn = None
+#: the JAX package's switch from its merged backward to the streaming-K
+#: one (``_merged_bwd_fits``: ``_MERGED_BWD_MAX_T``, the residency
+#: estimate of ``_merged_bwd_residency`` against ``_VMEM_CAP_BYTES``)
+_MERGED_BWD_MAX_T = 16384
+_VMEM_CAP_BYTES = 100 * 1024 * 1024
+
+_PTR = ctypes.c_void_p
+_I32 = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+#: C signatures: dtype code, tensor pointers, (b, h, tq, tk, d), the
+#: [B, T, H] strides of each strided operand, scale, causal, stream
+_FWD_ARGS = [_I32, *[_PTR] * 6, *[_I32] * 5, *[_STRIDES] * 3, ctypes.c_float, _I32, _PTR]
+_BWD_ARGS = [_I32, *[_PTR] * 12, *[_I32] * 5, *[_STRIDES] * 5, ctypes.c_float, _I32, _PTR]
 
 
 def reset_launch_counts() -> None:
@@ -67,13 +80,10 @@ def flash_attention_plain(
     lse [B,H,Tq] float32)``."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    tq, tk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, kv_mask, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
-    if kv_mask is not None:
-        s = s.masked_fill(~kv_mask.bool()[:, None, None, :], NEG_INF)
     m = _safe(s.amax(dim=-1, keepdim=True))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -83,24 +93,69 @@ def flash_attention_plain(
     return o.to(q.dtype), lse
 
 
-def _kernel_fn():
-    """The kernel's C entry point, built and declared on first use."""
-    global _fn
-    if _fn is None:
-        lib = _build.load("flash_fwd")
-        fn = lib.edl_flash_fwd
-        ptr = ctypes.c_void_p
-        i32 = ctypes.c_int
-        strides = ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32,
-            strides, strides, strides,
-            ctypes.c_float, i32, ptr,
-        ]
-        fn.restype = i32
-        _fn = fn
-    return _fn
+def _keep_mask(tq, tk, causal, kv_mask, device):
+    """``[B or 1, 1, Tq, Tk]`` bool of the attended (query, key) pairs,
+    or None when every pair is attended."""
+    keep = None
+    if causal:
+        keep = torch.ones((tq, tk), dtype=torch.bool, device=device).tril()[None, None]
+    if kv_mask is not None:
+        km = kv_mask.bool()[:, None, None, :]
+        keep = km if keep is None else keep & km
+    return keep
+
+
+def flash_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    g_lse: Optional[torch.Tensor],
+    kv_mask: Optional[torch.Tensor],
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in plain PyTorch, in one pass:
+    float32 scores; ``P = exp(S - lse)`` with masked keys giving exactly
+    0; ``delta = rowsum(dO * O) - g_lse`` from the stored O, in float32;
+    ``dS = P * (dP - delta)`` cast to the input dtype before the dK and
+    dQ products, P cast before the dV product; dQ and dK multiplied by
+    ``scale`` after float32 accumulation.  ``lse``/``g_lse``:
+    ``[B, H, Tq]``.  Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, kv_mask, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def merged_bwd_fits(tk: int, d: int) -> bool:
+    """Whether the JAX package runs its merged backward (B2) at this
+    key length and head dim, rather than the streaming-K one (B3):
+    ``_merged_bwd_fits`` of ``edl_tpu/ops/flash_attention.py``."""
+    residency = 16 * 1024 * 1024 + 4 * tk * d * 12
+    return tk <= _MERGED_BWD_MAX_T and residency <= _VMEM_CAP_BYTES
+
+
+def _readable_in_place(x: torch.Tensor) -> bool:
+    """Whether the kernels read ``x`` ([B, T, H, D]) where it lies: a
+    contiguous head dim and 16-byte aligned rows."""
+    return (
+        x.stride(-1) == 1
+        and not any(s % 8 for s in x.stride()[:3])
+        and x.data_ptr() % 16 == 0
+    )
 
 
 def _check_operand(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
@@ -110,13 +165,56 @@ def _check_operand(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
         raise ValueError(f"{name} is {x.dtype}, q is {ref.dtype}")
     if x.dim() != 4:
         raise ValueError(f"{name} must be [B, T, H, D], got {tuple(x.shape)}")
-    if x.stride(-1) != 1:
-        raise ValueError(f"{name}'s head dim must be contiguous")
-    if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+    if not _readable_in_place(x):
         raise ValueError(
-            f"{name}'s rows must be 16-byte aligned (strides "
-            f"{x.stride()} in elements must be multiples of 8)"
+            f"{name} must have a contiguous head dim and 16-byte aligned "
+            f"rows (strides {x.stride()} in elements must be multiples of 8)"
         )
+
+
+def _mask_ptr(kv_mask: Optional[torch.Tensor], b: int, tk: int, q: torch.Tensor):
+    """Device pointer of a ``[B, Tk]`` bool key mask (None for none)."""
+    if kv_mask is None:
+        return None
+    if (
+        kv_mask.dtype != torch.bool
+        or kv_mask.shape != (b, tk)
+        or kv_mask.device != q.device
+        or not kv_mask.is_contiguous()
+    ):
+        raise ValueError(
+            "kv_mask must be a contiguous bool [B, Tk] tensor on q's "
+            f"device, got {kv_mask.dtype} {tuple(kv_mask.shape)}"
+        )
+    return kv_mask.data_ptr()
+
+
+def _check_qkv(name: str, q, k, v, causal: bool, extra=()) -> Tuple[int, int, int, int, int]:
+    """Raise on q, k, v (and ``extra``: (name, tensor) pairs shaped like
+    q) that the kernels do not take; returns ``(b, tq, tk, h, d)``."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes bf16 or f16, got {q.dtype}")
+    for what, x in (("q", q), ("k", k), ("v", v), *extra):
+        _check_operand(what, x, q)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)}"
+        )
+    for what, x in extra:
+        if x.shape != q.shape:
+            raise ValueError(f"{what} {tuple(x.shape)} must match q {tuple(q.shape)}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if b * h > _MAX_BLOCKS_Y:
+        raise ValueError(f"B*H = {b * h} exceeds {_MAX_BLOCKS_Y}")
+    if causal and tq != tk:
+        raise ValueError(f"causal requires square attention, got {tq=} {tk=}")
+    return b, tq, tk, h, d
 
 
 def flash_fwd_cuda(
@@ -130,39 +228,9 @@ def flash_fwd_cuda(
     """Launch the CUDA kernel on PyTorch's current stream.  Checks
     device, dtype, shape and layout and raises on anything the kernel
     does not take; raises if the launch returns a CUDA error."""
-    if not q.is_cuda:
-        raise ValueError(f"flash_fwd_cuda needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd_cuda takes bf16 or f16, got {q.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    if k.shape != (b, tk, h, d) or v.shape != k.shape:
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"v {tuple(v.shape)}"
-        )
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
-    if b * h > _MAX_BLOCKS_Y:
-        raise ValueError(f"B*H = {b * h} exceeds {_MAX_BLOCKS_Y}")
-    if causal and tq != tk:
-        raise ValueError(f"causal requires square attention, got {tq=} {tk=}")
-    mask_ptr = None
-    if kv_mask is not None:
-        if (
-            kv_mask.dtype != torch.bool
-            or kv_mask.shape != (b, tk)
-            or kv_mask.device != q.device
-            or not kv_mask.is_contiguous()
-        ):
-            raise ValueError(
-                "kv_mask must be a contiguous bool [B, Tk] tensor on q's "
-                f"device, got {kv_mask.dtype} {tuple(kv_mask.shape)}"
-            )
-        mask_ptr = kv_mask.data_ptr()
-    fn = _kernel_fn()
+    b, tq, tk, h, d = _check_qkv("flash_fwd_cuda", q, k, v, causal)
+    mask_ptr = _mask_ptr(kv_mask, b, tk, q)
+    fn = _build.entry("flash_fwd", "edl_flash_fwd", _FWD_ARGS)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides = [
@@ -182,20 +250,107 @@ def flash_fwd_cuda(
     return o, lse
 
 
-class _FlashFwd(torch.autograd.Function):
-    """The kernel as an autograd node.  Its backward is the TPU
-    package's merged/streaming-K backward kernels, not ported yet."""
+def _check_stat(name: str, x: torch.Tensor, shape, ref: torch.Tensor) -> None:
+    if (
+        x.dtype != torch.float32
+        or tuple(x.shape) != shape
+        or x.device != ref.device
+        or not x.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name} must be a contiguous float32 {shape} tensor on q's "
+            f"device, got {x.dtype} {tuple(x.shape)}"
+        )
+
+
+def flash_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    g_lse: Optional[torch.Tensor],
+    kv_mask: Optional[torch.Tensor],
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels (delta, dK/dV, dQ) on PyTorch's
+    current stream; returns ``(dq, dk, dv)`` contiguous ``[B, T, H, D]``.
+    Raises for a shape the JAX package would send to its streaming-K
+    backward, on anything the kernels do not take, and if a launch
+    returns a CUDA error."""
+    if not merged_bwd_fits(k.shape[1], q.shape[-1]):
+        raise NotImplementedError(
+            f"streaming-K backward not ported (ROADMAP B3): Tk={k.shape[1]}, "
+            f"D={q.shape[-1]} is past the merged backward's range"
+        )
+    b, tq, tk, h, d = _check_qkv(
+        "flash_bwd_cuda", q, k, v, causal, (("o", o), ("do", do)))
+    _check_stat("lse", lse, (b, h, tq), q)
+    if g_lse is not None:
+        _check_stat("g_lse", g_lse, (b, h, tq), q)
+    mask_ptr = _mask_ptr(kv_mask, b, tk, q)
+    fn = _build.entry("flash_bwd", "edl_flash_bwd", _BWD_ARGS)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    strides = [
+        (ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, o, do)
+    ]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            None if g_lse is None else g_lse.data_ptr(), mask_ptr,
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, tq, tk, d, *strides, float(scale), int(bool(causal)),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed: cudaError {err}")
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention as an autograd node: the kernels on CUDA
+    tensors, the plain versions on CPU tensors.  The lse output is
+    differentiable: its cotangent enters the backward as
+    ``delta - g_lse`` (``d lse / d s = p``), as in the JAX package."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale):
-        return flash_fwd_cuda(q, k, v, causal, scale, kv_mask)
+        if q.is_cuda:
+            o, lse = flash_fwd_cuda(q, k, v, causal, scale, kv_mask)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal, scale, kv_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
     def backward(ctx, g_o, g_lse):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet (ROADMAP queue B "
-            "items 2-3: _bwd_kernel / _bwd_streamk_kernel)"
-        )
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        if g_o is None:
+            g_o = torch.zeros_like(o)
+        if q.is_cuda:
+            if g_lse is not None:
+                g_lse = g_lse.float().contiguous()
+            g_o = g_o.to(q.dtype)
+            if not _readable_in_place(g_o):
+                g_o = g_o.contiguous()
+            dq, dk, dv = flash_bwd_cuda(
+                q, k, v, o, lse, g_o, g_lse, kv_mask, ctx.causal, ctx.scale
+            )
+        else:
+            dq, dk, dv = flash_bwd_plain(
+                q, k, v, o, lse, g_o, g_lse, kv_mask, ctx.causal, ctx.scale
+            )
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(
@@ -207,9 +362,10 @@ def flash_attention_with_lse(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention over ``[B, T, H, D]`` that also returns the
-    per-row logsumexp: ``(o [B, Tq, H, D], lse [B, H, Tq] float32)``.
-    ``kv_mask``: optional ``[B, Tk]`` bool (True = attend).  CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    per-row logsumexp: ``(o [B, Tq, H, D], lse [B, H, Tq] float32)``,
+    both differentiable.  ``kv_mask``: optional ``[B, Tk]`` bool (True =
+    attend).  CUDA tensors launch the kernels; CPU tensors run the
+    plain versions."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if causal and q.shape[1] != k.shape[1]:
@@ -217,13 +373,11 @@ def flash_attention_with_lse(
             f"causal requires square attention, got {q.shape[1]=} "
             f"{k.shape[1]=}"
         )
-    if q.is_cuda:
-        if kv_mask is not None:
-            kv_mask = kv_mask.to(torch.bool).contiguous()
-        return _FlashFwd.apply(q, k, v, kv_mask, causal, scale)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale, kv_mask)
-    raise ValueError(f"flash attention has no path for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention has no path for device {q.device}")
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.bool).contiguous()
+    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
 
 
 def flash_attention(
@@ -243,6 +397,9 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_with_lse",
+    "flash_bwd_cuda",
+    "flash_bwd_plain",
     "flash_fwd_cuda",
+    "merged_bwd_fits",
     "reset_launch_counts",
 ]

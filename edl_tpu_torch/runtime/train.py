@@ -1,0 +1,141 @@
+"""The data-parallel train step (counterpart of
+``edl_tpu/runtime/train.py``).
+
+One ``Trainer`` runs one model on one device per process: forward,
+backward, the data-parallel gradient average over a
+``torch.distributed`` process group, and Adam.  The JAX package
+compiles the whole step into one XLA program per mesh; here PyTorch
+runs it eagerly, the hot operations in the port's CUDA kernels
+(attention forward and backward, the fused tied-vocab loss).
+
+The JAX ``Trainer.warm_step`` (AOT-compiling the step from abstract
+shapes so that a resize pays no compile) has no counterpart: eager
+PyTorch compiles nothing per shape, so there is nothing to warm.  (A
+CUDA graph of the step, for its launch overhead, is later work.)
+
+Unlike the JAX package's immutable ``TrainState`` pytree, the state is
+updated in place (``step`` returns the same object): the parameters,
+gradients and both Adam moments exist once, not twice, on the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from edl_tpu_torch import DeviceLike, generator, resolve_device
+from edl_tpu_torch.models.base import Batch, ModelDef, StateDict
+
+
+@dataclass
+class TrainState:
+    """Step counter, the trainable module (float32 parameters, their
+    ``.grad`` the last step's gradients) and its optimizer, whose state
+    holds Adam's moments."""
+
+    step: int
+    params: nn.Module
+    opt_state: torch.optim.Optimizer
+
+
+class Trainer:
+    """Runs the train step of one model on one device.
+
+    - Adam with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8,
+      eps_root 0, bias-corrected) on the float32 parameters.
+      ``torch.optim.Adam`` computes the same update,
+      ``lr * m_hat / (sqrt(v_hat) + eps)``, so it is used as it is.
+    - With a ``process_group`` of more than one member, each rank's
+      loss is weighted by its share of the global count of valid
+      tokens (the loss's ``valid_tokens`` aux; equal shares without
+      one) and the weighted gradients are summed with ``all_reduce``:
+      the gradient of the loss over the global batch, whose denominator
+      is the global valid count, so a world of 2 steps like a world of
+      1 on the same global batch.
+    - Each step's ``torch.Generator`` is seeded from ``(seed, step)``,
+      in place of ``jax.random.fold_in``.
+    """
+
+    def __init__(
+        self,
+        model: ModelDef,
+        lr: float = 1e-3,
+        device: DeviceLike = None,
+        seed: int = 0,
+        process_group: Optional[Any] = None,
+    ):
+        if model.train_params is None or model.loss_fn is None:
+            raise ValueError(f"model {model.name!r} has no training functions")
+        self.model = model
+        self.lr = lr
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.process_group = process_group
+        self.world = 1 if process_group is None else dist.get_world_size(process_group)
+
+    def init_state(self, state_dict: Optional[StateDict] = None) -> TrainState:
+        """State at step 0 from ``state_dict`` (e.g. weights converted
+        from flax), or from the model's seeded init — the same on every
+        rank."""
+        if state_dict is None:
+            state_dict = self.model.init_params(generator(self.seed))
+        params = self.model.train_params(state_dict, self.device)
+        opt = torch.optim.Adam(
+            params.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
+        )
+        return TrainState(step=0, params=params, opt_state=opt)
+
+    def step_generator(self, step: int) -> torch.Generator:
+        """The generator handed to the loss at ``step``: a pure function
+        of ``(seed, step)``."""
+        return generator((self.seed * 1_000_003 + step) % (2**63), self.device.type)
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(x, group=self.process_group)
+        return x
+
+    def loss_and_grads(
+        self, state: TrainState, batch: Batch
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Forward and backward of the loss at ``state``: the gradients
+        (averaged over the process group) land in the parameters'
+        ``.grad``; returns the global loss and the loss's aux."""
+        params = state.params
+        state.opt_state.zero_grad(set_to_none=True)
+        loss, aux = self.model.loss_fn(params, batch, self.step_generator(state.step))
+        if self.world == 1:
+            loss.backward()
+            return loss.detach(), aux
+        count = aux.get("valid_tokens")
+        if count is None:
+            weight = torch.tensor(1.0 / self.world, device=loss.device)
+        else:
+            count = count.detach().float()
+            weight = count / self._all_reduce(count.clone()).clamp_min(1.0)
+        (loss * weight).backward()
+        for p in params.parameters():
+            if p.grad is not None:
+                self._all_reduce(p.grad)
+        return self._all_reduce(loss.detach() * weight), aux
+
+    def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
+        """One Adam step on ``batch`` (this rank's slice of the global
+        batch); returns the updated state and the step's metrics."""
+        loss, aux = self.loss_and_grads(state, batch)
+        state.opt_state.step()
+        state.step += 1
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        metrics["loss"] = loss
+        return state, metrics
+
+    def eval_loss(self, state: TrainState, batch: Batch) -> torch.Tensor:
+        """The loss at ``state`` on ``batch``, without gradients."""
+        with torch.no_grad():
+            return self.model.loss_fn(state.params, batch, generator(0, self.device.type))[0]
+
+
+__all__ = ["TrainState", "Trainer"]

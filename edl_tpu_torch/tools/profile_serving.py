@@ -44,6 +44,11 @@ def _kernel_class(name: str) -> str:
 
 
 def _device_us(evt) -> float:
+    """Self device microseconds of a profiler event; 0 for a user
+    annotation (``Optimizer.step#Adam.step``): its span on the device
+    timeline covers kernels that are counted on their own."""
+    if getattr(evt, "is_user_annotation", False):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
         if v:

@@ -1,0 +1,140 @@
+"""Where the training step's time goes, on the card.
+
+    python -m edl_tpu_torch.tools.profile_training [--batch 8] [--reps 5]
+
+Builds the full-width ``transformer_lm`` ``Trainer`` (seeded weights,
+float32 parameters, bf16 compute, Adam) over ``ShardedDataIterator``
+and, after one warm-up step, measures the train step as host wall time
+per step (ending in a synchronize) and under ``torch.profiler``: device
+time per kernel class (the port's kernels B1, B2, B4-B6 by name, cuBLAS
+products, the optimizer, the rest), the top kernels, launches per step
+and the device's busy share of the wall time.  Prints one JSON line for
+the step and a summary line with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from edl_tpu_torch.tools.profile_serving import _device_us
+
+#: H100 SXM dense bf16 peak (NVIDIA data sheet, at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "flash_fwd (B1)"
+    if "flash_bwd" in n:
+        return "flash_bwd (B2)"
+    for mode, label in (("0", "xent_fwd (B4)"), ("1", "xent_dy (B5)"), ("2", "xent_de (B6)")):
+        if f"xent_kernel<{mode}" in n:
+            return label
+    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90")):
+        return "matmul (cuBLAS)"
+    if "multi_tensor" in n or "adam" in n:
+        return "optimizer (Adam)"
+    if "layer_norm" in n or "softmax" in n or "reduce" in n:
+        return "norm/reduce"
+    if "index" in n or "gather" in n or "scatter" in n or "embedding" in n:
+        return "gather/scatter"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    return "elementwise/other"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_training measures the card; no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import ShardedDataIterator, Trainer, synthetic_dataset
+
+    model = get_model("transformer_lm")
+    trainer = Trainer(model, device="cuda", seed=args.seed)
+    state = trainer.init_state()
+    it = ShardedDataIterator(
+        synthetic_dataset(model.synth_batch, 4 * args.batch, seed=args.seed), args.batch,
+        seed=args.seed,
+    )
+    batches = [it.device_batch(s, "cuda") for s in range(2 * args.reps + 1)]
+
+    def run(i):
+        nonlocal state
+        state, _ = trainer.step(state, batches[i])
+
+    run(0)  # warm-up: library handles, allocator, kernel builds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, args.reps + 1):
+        run(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.reps + 1, 2 * args.reps + 1):
+            run(i)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_class = defaultdict(float)
+    kernels = []
+    launches = 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_class[_kernel_class(evt.key)] += us
+        kernels.append((us, evt.count, evt.key))
+        launches += evt.count
+    device_ms = sum(by_class.values()) / 1e3 / args.reps
+    kernels.sort(reverse=True)
+    flops = args.batch * model.flops_per_example
+    tokens = args.batch * model.tokens_per_example
+    step = {
+        "batch": args.batch, "seq_len": model.tokens_per_example,
+        "host_wall_ms_per_step": wall_ms,
+        "tokens_per_s": tokens / (wall_ms * 1e-3),
+        "mfu": flops / (wall_ms * 1e-3) / PEAK_BF16_FLOPS,
+        "device_ms_per_step": device_ms,
+        "device_busy_share_of_unprofiled_wall": device_ms / wall_ms,
+        "device_busy_share_of_profiled_window": device_ms * args.reps / window_ms,
+        "kernel_launches_per_step": launches / args.reps,
+        "device_ms_by_class_per_step": {
+            k: v / 1e3 / args.reps for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])
+        },
+        "top_kernels": [
+            {"name": name[:120], "ms_per_step": us / 1e3 / args.reps,
+             "calls_per_step": n / args.reps}
+            for us, n, name in kernels[:10]
+        ],
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(json.dumps({"train_step": step}))
+    print(json.dumps({"card": smi, "torch": torch.__version__}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

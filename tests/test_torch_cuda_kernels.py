@@ -11,15 +11,23 @@ import pytest
 import torch
 
 from edl_tpu_torch.ops import fused_attention
+from edl_tpu_torch.ops import fused_xent as fx
 from edl_tpu_torch.ops.flash_attention import (
     LAUNCHES,
     flash_attention_plain,
     flash_attention_with_lse,
+    flash_bwd_cuda,
+    flash_bwd_plain,
     flash_fwd_cuda,
 )
 
 #: bf16/f16 tolerance of the repo's flash tests
 TOL = 3e-2
+#: gradients in bf16/f16: kernel and plain round dS and P to the input
+#: type at the same points from float32 sums taken in another order, so
+#: a rounding can land one ulp apart; held at this fraction of the
+#: gradient's largest magnitude
+GRAD_TOL = 2e-2
 
 
 @pytest.fixture
@@ -83,3 +91,116 @@ def test_fused_attention_takes_the_kernel_on_strided_qkv_views(cuda):
     assert LAUNCHES["flash_fwd"] == before + 1
     want = flash_attention_plain(q, k, v, True)[0]
     torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+def _close_to_scale(got, want, tol):
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,Tk,H,D,causal,dtype,with_glse,masked",
+    [
+        (1, 16, 16, 12, 64, True, torch.bfloat16, False, False),
+        (2, 200, 200, 3, 64, True, torch.bfloat16, True, False),
+        (1, 100, 37, 2, 128, False, torch.bfloat16, True, False),
+        (2, 65, 65, 4, 32, True, torch.float16, False, False),
+        (3, 64, 64, 4, 16, True, torch.bfloat16, True, False),
+        (2, 130, 130, 3, 64, False, torch.bfloat16, True, True),
+    ],
+)
+def test_flash_bwd_matches_plain(cuda, B, T, Tk, H, D, causal, dtype, with_glse, masked):
+    q = _rand(cuda, (B, T, H, D), dtype)
+    k = _rand(cuda, (B, Tk, H, D), dtype)
+    v = _rand(cuda, (B, Tk, H, D), dtype)
+    do = _rand(cuda, (B, T, H, D), dtype)
+    mask = None
+    if masked:
+        mask = torch.rand((B, Tk), generator=cuda, device="cuda") > 0.3
+        mask[-1] = False  # a batch row with every key masked
+    g_lse = _rand(cuda, (B, H, T), torch.float32) if with_glse else None
+    scale = D ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    got = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close_to_scale(g, w, GRAD_TOL)
+    if masked:
+        for g in got:
+            assert g[-1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_backward_through_autograd_on_strided_views(cuda):
+    """The model's q/k/v are views into one fused QKV projection; the
+    autograd node saves them as they are, launches the backward once
+    per call, and the lse output's gradient reaches the kernel."""
+    qkv = _rand(cuda, (2, 96, 3, 4, 64), torch.bfloat16).requires_grad_(True)
+    q, k, v = qkv.unbind(2)
+    w_o = _rand(cuda, (2, 96, 4, 64), torch.bfloat16)
+    w_l = _rand(cuda, (2, 4, 96), torch.float32)
+    before = LAUNCHES["flash_bwd"]
+    o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    ((o.float() * w_o.float()).sum() + (lse * w_l).sum()).backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_bwd"] == before + 1
+    want = flash_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), w_o,
+        w_l, None, True, 64 ** -0.5,
+    )
+    for got, w in zip(qkv.grad.unbind(2), want):
+        _close_to_scale(got, w, GRAD_TOL)
+
+
+def _xent_inputs(g, n, v, d):
+    y = (_rand(g, (n, d), torch.float32) * 0.1).to(torch.bfloat16)
+    e = _rand(g, (v, d), torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda", dtype=torch.int32)
+    labels[1] = v  # out of range: label logit 0, no one-hot (ROADMAP section C)
+    lse, _, _ = fx.xent_fwd_plain(y, e, labels)
+    scale = torch.rand((n,), generator=g, device="cuda") / n
+    scale[::7] = 0.0  # rows with valid 0
+    return y, e, labels, lse, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,D", [(300, 1001, 64), (256, 4096, 768), (64, 32001, 128)])
+def test_xent_kernels_match_plain(cuda, N, V, D):
+    y, e, labels, lse, scale = _xent_inputs(cuda, N, V, D)
+    got = fx.xent_fwd_cuda(y, e, labels)
+    torch.cuda.synchronize()
+    for g, w in zip(got, fx.xent_fwd_plain(y, e, labels)):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-4)
+    _close_to_scale(fx.xent_dy_cuda(y, e, labels, lse, scale),
+                    fx.xent_dy_plain(y, e, labels, lse, scale), GRAD_TOL)
+    _close_to_scale(fx.xent_de_cuda(y, e, labels, lse, scale),
+                    fx.xent_de_plain(y, e, labels, lse, scale), GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_vocab_xent_on_the_card_matches_the_cpu_path(cuda):
+    """The autograd function on CUDA (kernels) and on CPU (plain) from
+    the same inputs: loss, accuracy, dY and dE; rows padded to the row
+    tile and label-0 rows masked out."""
+    feats = _rand(cuda, (3, 50, 64), torch.float32) * 0.1
+    emb = _rand(cuda, (1001, 64), torch.float32)
+    labels = torch.randint(0, 1001, (3, 50), generator=cuda, device="cuda")
+    labels[:, ::5] = 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        f = feats.detach().to(dev, copy=True).requires_grad_(True)
+        w = emb.detach().to(dev, copy=True).requires_grad_(True)
+        lab = labels.to(dev)
+        before = dict(fx.LAUNCHES)
+        loss, acc = fx.fused_vocab_xent(f, w, lab, lab != 0)
+        loss.backward()
+        if dev == "cuda":
+            assert all(fx.LAUNCHES[k] == before[k] + 1 for k in before)
+        out[dev] = [loss.detach().cpu(), acc.cpu(), f.grad.cpu(), w.grad.cpu()]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+    assert abs(out["cuda"][1].item() - out["cpu"][1].item()) <= 1.0 / 120
+    for g, w in zip(out["cuda"][2:], out["cpu"][2:]):
+        _close_to_scale(g, w, GRAD_TOL)

@@ -1,15 +1,19 @@
-"""The port's flash attention against the JAX package's Pallas kernel.
+"""The port's flash attention against the JAX package's Pallas kernels.
 
 The same numpy inputs (``np.random.RandomState``) go through
 ``edl_tpu.ops.flash_attention_with_lse`` in interpret mode (16x16
 tiles, as ``tests/test_flash_attention.py`` runs it on the CPU) and
 through the port's ``flash_attention_plain`` / ``flash_attention_with_lse``
-on CPU tensors.  Tolerances are ``tests/test_flash_attention.py``'s:
-2e-5 for float32, 3e-2 for bf16.  The CUDA kernel itself is held
-against the plain version on the card (``tests/test_torch_cuda_kernels.py``
-and ``chip_smoke.py``).
+on CPU tensors; the backward through ``jax.vjp`` (the merged
+``_bwd_kernel``) and through the port's ``flash_bwd_plain`` and CPU
+autograd.  Forward tolerances are ``tests/test_flash_attention.py``'s:
+2e-5 for float32, 3e-2 for bf16; gradients are held at 1e-4 (float32)
+and 3e-2 (bf16) of their largest magnitude.  The CUDA kernels
+themselves are held against the plain versions on the card
+(``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,16 +23,19 @@ from edl_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash
 from edl_tpu.ops.ring_attention import reference_attention as jax_reference
 from edl_tpu_torch.ops import fused_attention
 from edl_tpu_torch.ops.flash_attention import (
-    _FlashFwd,
     flash_attention,
     flash_attention_plain,
     flash_attention_with_lse,
+    flash_bwd_cuda,
+    flash_bwd_plain,
     flash_fwd_cuda,
+    merged_bwd_fits,
 )
 from edl_tpu_torch.ops.ring_attention import reference_attention
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def _inputs(seed, B=2, T=64, H=2, D=16, Tk=None):
@@ -154,5 +161,72 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_backward_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-        _FlashFwd.backward(None, None, None)
+    """Where the JAX package would take its streaming-K backward (B3,
+    not ported), the CUDA backward raises naming the ROADMAP item
+    instead of running the merged kernel in its place; the model's own
+    T=2048, D=64 stays on the merged one."""
+    assert merged_bwd_fits(2048, 64) and merged_bwd_fits(16384, 64)
+    for t, d in ((16385, 16), (14400, 128)):
+        assert not merged_bwd_fits(t, d)
+        q = torch.zeros((1, t, 1, d), dtype=torch.bfloat16)
+        lse = torch.zeros((1, 1, t))
+        with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+            flash_bwd_cuda(q, q, q, q, lse, q, None, None, True, d ** -0.5)
+
+
+def _jax_grads(q, k, v, do, g_lse, causal, mask, dtype):
+    def f(q, k, v):
+        return jax_flash(
+            q, k, v, causal=causal,
+            kv_mask=None if mask is None else jnp.asarray(mask),
+            block_q=16, block_k=16, interpret=True,
+        )
+
+    jd = getattr(jnp, dtype)
+    (o, lse), vjp = jax.vjp(f, *(jnp.asarray(x, jd) for x in (q, k, v)))
+    grads = vjp((jnp.asarray(do, jd), jnp.asarray(g_lse, jnp.float32)))
+    return [np.asarray(g, np.float32) for g in grads]
+
+
+def _close_to_scale(got, want, tol):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize(
+    "causal,masked,dtype",
+    [(True, False, "float32"), (False, True, "float32"), (True, False, "bfloat16")],
+    ids=["causal-f32", "kv_mask-f32", "causal-bf16"],
+)
+def test_backward_matches_jax_merged_kernel(causal, masked, dtype):
+    """dQ, dK, dV of ``flash_bwd_plain`` and of the port's CPU autograd
+    against ``jax.vjp`` through the Pallas merged backward, with a
+    nonzero lse cotangent; the masked case has a batch row with every
+    key masked, whose gradients are exactly 0."""
+    T = 48
+    q, k, v = _inputs(11, T=T)
+    rng = np.random.RandomState(12)
+    do = rng.randn(*q.shape).astype(np.float32)
+    g_lse = rng.randn(2, 2, T).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.rand(2, T) > 0.3
+        mask[1] = False
+    want = _jax_grads(q, k, v, do, g_lse, causal, mask, dtype)
+    td = getattr(torch, dtype)
+    tm = None if mask is None else torch.from_numpy(mask)
+    tq, tk, tv = (_torch(x, td).requires_grad_(True) for x in (q, k, v))
+    o, lse = flash_attention_with_lse(tq, tk, tv, causal, None, tm)
+    autograd = torch.autograd.grad(
+        (o, lse), (tq, tk, tv), (_torch(do, td), torch.from_numpy(g_lse))
+    )
+    plain = flash_bwd_plain(
+        tq.detach(), tk.detach(), tv.detach(), o.detach(), lse.detach(),
+        _torch(do, td), torch.from_numpy(g_lse), tm, causal, 16 ** -0.5,
+    )
+    for grads in (autograd, plain):
+        for g, w in zip(grads, want):
+            assert g.dtype == td
+            _close_to_scale(g.float().numpy(), w, GRAD_TOL[dtype])
+            if masked:
+                assert np.all(g.float().numpy()[1] == 0.0)

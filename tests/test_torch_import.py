@@ -63,6 +63,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     they raise rather than run on the CPU."""
     from edl_tpu_torch import resolve_device
     from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import Trainer
     from edl_tpu_torch.serving import DecodeEngine, InferenceEngine, KVBlockPool
     from edl_tpu_torch.serving.server import build_replica
 
@@ -74,6 +75,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: InferenceEngine(model),
         lambda: KVBlockPool(1, 1, 16, 2, 16, torch.bfloat16),
         lambda: build_replica("transformer_lm", tiny=True),
+        lambda: Trainer(model),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
