@@ -16,11 +16,19 @@ non-zero on the first failure.  Phases, in order:
 3. **Kernels against their plain versions** — each kernel's wrapper on
    card tensors at the shapes the main paths give it (and ragged,
    masked edge cases), held against the plain PyTorch version on the
-   same inputs with a stated tolerance; then timed at the main path's
-   largest shape beside its plain version, its bound and, where one
-   exists, one PyTorch library call computing the same function.
-   B1 flash forward, B2 flash backward, B4-B6 fused tied-vocab cross
-   entropy.
+   same inputs with a stated tolerance (attention outputs also row by
+   row, against each row's own scale; at T=32768 planted faults show
+   that the row check rejects a kernel that drops late rows or a
+   slot); then timed at the main path's largest shape beside its plain
+   version, its bound and, where one exists, one PyTorch library call
+   computing the same function.
+   B1 flash forward (also at the long-context shape [1, 32768, 12, 64],
+   against its plain version head by head), B2 flash backward, B3
+   streaming-K flash backward (forced at small shapes, by dispatch past
+   the merged range, and at [1, 32768, 12, 64] against its plain
+   version head by head, run twice for bit identity, beside B2 forced
+   on the same inputs), B4-B6 fused tied-vocab cross entropy (also at
+   the long-context path's N = 32768).
 4. **Serving** — full-width ``transformer_lm`` (seeded random weights)
    behind ``DecodeEngine`` + ``TokenContinuousBatcher`` (monolithic
    prefill) + ``ServingServer`` on loopback; four concurrent
@@ -38,9 +46,17 @@ non-zero on the first failure.  Phases, in order:
    batch 2 the kernel path's step-0 loss and gradients are held
    against the plain path's (plain attention autograd +
    ``tied_vocab_xent``).
-6. **Kernels line** — one JSON object listing every ported kernel with
+6. **Long-context training** — full-width ``longcontext_lm`` at
+   T=32768, global batch 1, in the same ``Trainer``: step 0 twice from
+   one state bit-identical; one warm-up step and three timed steps, each
+   with 12 ``flash_fwd``, 12 ``flash_bwd_streamk``, no ``flash_bwd`` and
+   one each of ``xent_fwd``, ``xent_dy``, ``xent_de``; the loss must
+   fall; and at batch 1, T=2048 with B3 forced at 8 slots, the kernel
+   path's step-0 loss and gradients are held against the plain path's
+   (the plain path cannot run at T=32768).
+7. **Kernels line** — one JSON object listing every ported kernel with
    its launches on the main path, error, times and bound.
-7. **Last line** — ``{"ok": true, "device": {...}}``.
+8. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -82,6 +98,22 @@ STAT_TOL = 1e-5
 #: points through 12 layers; the loss is held at this relative
 #: tolerance and each gradient at GRAD_TOL of its largest magnitude
 TRAIN_LOSS_TOL = 1e-3
+#: every attention output ([B, T, H, D]: O, dQ, dK, dV) is also held row
+#: by row: |got - want| over the D values of each (b, t, h) row, as a
+#: fraction of that row's own |want|.  At long T a causal row's values
+#: shrink about as 1/sqrt(t), so a tolerance of the whole tensor's
+#: largest value would pass a kernel that zeroed the late rows; this one
+#: follows each row's scale.  Sound kernels differ from their plain
+#: versions by bf16 roundings of single elements: at most 5.4e-3 of a
+#: row on the H100 at every shape here, while the faults planted at
+#: [1, 32768, 12, 64] (late rows zeroed, the last slot's keys dropped)
+#: are a whole row off at 1.0e-2 to 4.3e-2 of the tensor's scale
+#: (PERF.md section 6).  Rows whose |want| is under ROW_FLOOR of the
+#: tensor's largest row are held against that floor: such rows (a first
+#: query's dQ, which is rounding residue on both sides) have no scale
+#: of their own.
+ROW_TOL = 1e-2
+ROW_FLOOR = 1e-3
 
 SERVE_PROMPTS = (300, 700, 1200, 1900)
 SERVE_NEW_TOKENS = 32
@@ -94,6 +126,16 @@ TRAIN_BATCH = 8
 TRAIN_LR = 1e-3
 TRAIN_STEPS = 5
 PARITY_BATCH = 2
+
+#: the long-context phase: full-width longcontext_lm at T=32768 (the
+#: first D=64 length past the merged backward's range), global batch 1,
+#: one warm-up step and three timed ones; its kernel-vs-plain parity at
+#: T=2048 with B3 forced at 256-key slots (8 partials)
+LONG_T = 32768
+LONG_BATCH = 1
+LONG_STEPS = 3
+LONG_PARITY_T = 2048
+LONG_PARITY_SLOT = 256
 
 
 def fail(msg: str) -> None:
@@ -199,10 +241,12 @@ def _flash_case(g, b, t, h, d, causal, mask_kind=None):
         fail(f"flash_fwd non-finite output at {b=} {t=} {causal=} {mask_kind=}")
     o_err = (o.float() - po.float()).abs().max().item()
     lse_err = (lse - plse).abs().max().item()
+    row_err = _row_err(o, po)
     o_ok = torch.allclose(o.float(), po.float(), atol=BF16_TOL, rtol=BF16_TOL)
-    if not o_ok or lse_err > LSE_TOL:
+    if not o_ok or lse_err > LSE_TOL or row_err > ROW_TOL:
         fail(f"flash_fwd disagrees with its plain version at {b=} {t=} "
-             f"{causal=} {mask_kind=}: O err {o_err}, lse err {lse_err}")
+             f"{causal=} {mask_kind=}: O err {o_err}, O row err {row_err} "
+             f"(tolerance {ROW_TOL}), lse err {lse_err}")
     if mask_kind == "row_masked":
         if o[-1].float().abs().max().item() != 0.0:
             fail("fully masked row: O is not 0")
@@ -210,7 +254,8 @@ def _flash_case(g, b, t, h, d, causal, mask_kind=None):
         if (lse[-1] - want).abs().max().item() > 1e-4:
             fail("fully masked row: lse is not log(1e-30)")
     return {"B": b, "T": t, "H": h, "D": d, "causal": causal,
-            "mask": mask_kind, "o_max_abs_err": o_err, "lse_max_abs_err": lse_err}
+            "mask": mask_kind, "o_max_abs_err": o_err, "o_row_err": row_err,
+            "row_tolerance": ROW_TOL, "lse_max_abs_err": lse_err}
 
 
 def _bound(flops, nbytes) -> tuple:
@@ -285,6 +330,56 @@ def _max_abs(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def _row_err(got, want) -> float:
+    """Largest over the rows of the last axis of |got - want| / |want|
+    (2-norms), each row against its own |want| floored at ROW_FLOOR of
+    the largest row's."""
+    import torch
+
+    want = want.float()
+    ref = want.norm(dim=-1)
+    err = (got.float() - want).norm(dim=-1)
+    floor = ROW_FLOOR * ref.max().clamp_min(1e-30)
+    return (err / torch.maximum(ref, floor)).max().item()
+
+
+def _check_rejects(what, faults, want) -> dict:
+    """The row check must reject each planted fault: ``faults`` maps a
+    fault's name to outputs of ``what`` with that fault planted, each
+    held against ``want``.  Returns both measures for each fault: the
+    row error and the error of the whole tensor's scale."""
+    out = {}
+    for name, bad in faults.items():
+        rows = max(_row_err(x, w) for x, w in zip(bad, want))
+        of_scale = max(_rel_err(x, w) for x, w in zip(bad, want))
+        if not rows > ROW_TOL:
+            fail(f"the row check of {what} passes a planted fault ({name}): "
+                 f"row error {rows}, tolerance {ROW_TOL}")
+        out[name] = {"row_err": rows, "err_of_scale": of_scale}
+    return out
+
+
+def _grad_errors(what, got, want, mask_kind, where):
+    """``{name: (max_abs, of_scale, row)}`` of dq, dk, dv against the
+    plain version; fails past GRAD_TOL of the scale or ROW_TOL of a row,
+    and where the last batch row has every key masked, unless its
+    gradients are exactly 0."""
+    import torch
+
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(x.float()).all():
+            fail(f"{what} non-finite {name} at {where}")
+        errs[name] = (_max_abs(x, w), _rel_err(x, w), _row_err(x, w))
+        if errs[name][1] > GRAD_TOL or errs[name][2] > ROW_TOL:
+            fail(f"{what} {name} disagrees with its plain version at {where}: error "
+                 f"{errs[name][1]} of its scale (tolerance {GRAD_TOL}), "
+                 f"{errs[name][2]} of a row (tolerance {ROW_TOL})")
+        if mask_kind == "row_masked" and x[-1].float().abs().max().item() != 0.0:
+            fail(f"{what} at {where}, fully masked row: {name} is not 0")
+    return errs
+
+
 def _bwd_case(g, b, t, h, d, causal, mask_kind=None, with_glse=False):
     """One B2 kernel-vs-plain comparison from the B1 kernel's O and lse."""
     import torch
@@ -304,21 +399,13 @@ def _bwd_case(g, b, t, h, d, causal, mask_kind=None, with_glse=False):
     torch.cuda.synchronize()
     want = flash_bwd_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale)
     torch.cuda.synchronize()
-    errs = {}
-    for name, x, w in zip(("dq", "dk", "dv"), got, want):
-        if not torch.isfinite(x.float()).all():
-            fail(f"flash_bwd non-finite {name} at {b=} {t=} {causal=} {mask_kind=}")
-        errs[name] = (_max_abs(x, w), _rel_err(x, w))
-        if errs[name][1] > GRAD_TOL:
-            fail(f"flash_bwd {name} disagrees with its plain version at {b=} {t=} "
-                 f"{causal=} {mask_kind=} {with_glse=}: error {errs[name][1]} of "
-                 f"its scale (tolerance {GRAD_TOL})")
-        if mask_kind == "row_masked" and x[-1].float().abs().max().item() != 0.0:
-            fail(f"fully masked row: {name} is not 0")
+    errs = _grad_errors("flash_bwd", got, want, mask_kind,
+                        f"{b=} {t=} {causal=} {mask_kind=} {with_glse=}")
     return {"B": b, "T": t, "H": h, "D": d, "causal": causal, "mask": mask_kind,
             "g_lse": with_glse, "tolerance_of_scale": GRAD_TOL,
             "max_abs_err": max(e[0] for e in errs.values()),
-            "err_of_scale": {k: e[1] for k, e in errs.items()}}
+            "err_of_scale": {k: e[1] for k, e in errs.items()},
+            "row_tolerance": ROW_TOL, "row_err": {k: e[2] for k, e in errs.items()}}
 
 
 def flash_bwd_bound_ms(b, t, h, d, causal) -> tuple:
@@ -383,6 +470,226 @@ def phase_flash_bwd():
     log({"kernel_timing": timing})
     return {"cases": cases, "timing": timing,
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def _streamk_case(g, b, t, h, d, causal, slot_w=None, mask_kind=None,
+                  with_glse=False, via_autograd=False):
+    """One B3 kernel-vs-plain comparison from the B1 kernel's O and lse.
+    ``slot_w`` None takes the dispatch's own width; ``via_autograd``
+    goes through ``flash_attention_with_lse``'s backward with no
+    override, which must pick B3 by itself."""
+    import torch
+
+    from edl_tpu_torch.ops.flash_attention import (
+        LAUNCHES,
+        bwd_impl,
+        flash_attention_with_lse,
+        flash_bwd_streamk_cuda,
+        flash_bwd_streamk_plain,
+        flash_fwd_cuda,
+        streamk_slot_width,
+    )
+
+    q, k, v = _qkv(g, b, t, h, d)
+    do = torch.randn((b, t, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    mask = None
+    if mask_kind == "row_masked":
+        mask = torch.rand((b, t), generator=g, device="cuda") > 0.25
+        mask[-1] = False  # one batch row with every key masked
+    g_lse = torch.randn((b, h, t), generator=g, device="cuda") if with_glse else None
+    scale = d ** -0.5
+    width = slot_w or streamk_slot_width(t)
+    where = f"{b=} {t=} {h=} {d=} {causal=} slot {width} {mask_kind=} {with_glse=}"
+    if via_autograd:
+        if bwd_impl(t, d) != "streamk":
+            fail(f"the dispatch does not pick B3 at {where}")
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        before = dict(LAUNCHES)
+        o, lse = flash_attention_with_lse(qg, kg, vg, causal, scale, mask)
+        outs, cots = [o], [do]
+        if with_glse:
+            outs.append(lse)
+            cots.append(g_lse)
+        got = torch.autograd.grad(outs, (qg, kg, vg), cots)
+        torch.cuda.synchronize()
+        if (LAUNCHES["flash_bwd_streamk"] != before["flash_bwd_streamk"] + 1
+                or LAUNCHES["flash_bwd"] != before["flash_bwd"]):
+            fail(f"autograd at {where} did not launch B3 once and B2 never")
+        o, lse = o.detach(), lse.detach()
+    else:
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+        got = flash_bwd_streamk_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale, width)
+        torch.cuda.synchronize()
+    want = flash_bwd_streamk_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale, width,
+                                   by_head=True)
+    torch.cuda.synchronize()
+    errs = _grad_errors("flash_bwd_streamk", got, want, mask_kind, where)
+    return {"B": b, "T": t, "H": h, "D": d, "causal": causal, "slot_w": width,
+            "slots": -(-t // width), "mask": mask_kind, "g_lse": with_glse,
+            "via_autograd": via_autograd, "tolerance_of_scale": GRAD_TOL,
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "err_of_scale": {k: e[1] for k, e in errs.items()},
+            "row_tolerance": ROW_TOL, "row_err": {k: e[2] for k, e in errs.items()}}
+
+
+def _plain_fwd_by_head(q, k, v, causal, scale):
+    """flash_attention_plain one head at a time ([T, T] f32 scores of
+    one head at a time)."""
+    import torch
+
+    from edl_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    parts = [flash_attention_plain(q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1],
+                                   causal, scale) for i in range(q.shape[2])]
+    return torch.cat([p[0] for p in parts], dim=2), torch.cat([p[1] for p in parts], dim=1)
+
+
+def phase_long_kernels():
+    """B1 and B3 at the long-context path's shape, beside B3's edge
+    cases, B2 forced on the same inputs and SDPA as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from edl_tpu_torch.ops.flash_attention import (
+        flash_bwd_cuda,
+        flash_bwd_streamk_cuda,
+        flash_bwd_streamk_plain,
+        flash_fwd_cuda,
+        streamk_slot_width,
+    )
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    cases = [
+        _streamk_case(g, 2, 4096, 12, 64, True, slot_w=512),
+        _streamk_case(g, 2, 4096, 12, 64, True, slot_w=512, with_glse=True),
+        _streamk_case(g, 2, 300, 12, 64, False, slot_w=100, mask_kind="row_masked",
+                      with_glse=True),
+        _streamk_case(g, 1, 16384, 4, 128, True, via_autograd=True, with_glse=True),
+        _streamk_case(g, 1, 16411, 2, 64, True),  # prime T: ragged last slot
+    ]
+    for c in cases:
+        log({"flash_bwd_streamk_check": c})
+
+    b, t, h, d = LONG_BATCH, LONG_T, 12, 64
+    scale = d ** -0.5
+    q, k, v = _qkv(g, b, t, h, d)
+    do = torch.randn((b, t, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    o, lse = flash_fwd_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    po, plse = _plain_fwd_by_head(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    o_err, lse_err = _max_abs(o, po), (lse - plse).abs().max().item()
+    row_err = _row_err(o, po)
+    if (not torch.allclose(o.float(), po.float(), atol=BF16_TOL, rtol=BF16_TOL)
+            or lse_err > LSE_TOL or row_err > ROW_TOL):
+        fail(f"flash_fwd at {[b, t, h, d]}: O err {o_err}, O row err {row_err} "
+             f"(tolerance {ROW_TOL}), lse err {lse_err}")
+    # the late half of O zeroed: a fault the row check must reject
+    late_zero = o.clone()
+    late_zero[:, t // 2:] = 0
+    fwd_check = {"B": b, "T": t, "H": h, "D": d, "causal": True,
+                 "o_max_abs_err": o_err, "o_row_err": row_err, "row_tolerance": ROW_TOL,
+                 "lse_max_abs_err": lse_err,
+                 "planted_faults": _check_rejects(
+                     "flash_fwd", {"O rows t >= T/2 zeroed": [late_zero]}, [po])}
+    log({"flash_fwd_check": fwd_check})
+    del po, plse, late_zero
+    fwd_ms = cuda_ms(lambda: flash_fwd_cuda(q, k, v, True, scale), iters=5, warmup=1)
+    fwd_plain_ms = cuda_ms(lambda: _plain_fwd_by_head(q, k, v, True, scale), iters=1, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(sdpa_fwd, iters=5)
+    sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, iters=5) - sdpa_fwd_ms
+    bound_ms, bound_by, flops, nbytes = flash_bound_ms(b, t, h, d, True)
+    fwd_timing = {
+        "name": "flash_fwd", "shape": [b, t, h, d], "causal": True,
+        "kernel_ms": fwd_ms, "plain_ms": fwd_plain_ms, "plain": "flash_attention_plain head by head",
+        "library_ms": sdpa_fwd_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": flops, "bytes": nbytes, "tflops": flops / (fwd_ms * 1e-3) / 1e12,
+    }
+    log({"kernel_timing": fwd_timing})
+
+    width = streamk_slot_width(t)
+    args = (q, k, v, o, lse, do, None, None, True, scale)
+    got = flash_bwd_streamk_cuda(*args, width)
+    again = flash_bwd_streamk_cuda(*args, width)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(x, y) for x, y in zip(got, again))
+    if not identical:
+        fail(f"two B3 runs at {[b, t, h, d]} differ")
+    del again
+    want = flash_bwd_streamk_plain(*args, width, by_head=True)
+    torch.cuda.synchronize()
+    where = f"{[b, t, h, d]} causal slot {width}"
+    errs = _grad_errors("flash_bwd_streamk", got, want, None, where)
+    full = {"B": b, "T": t, "H": h, "D": d, "causal": True, "slot_w": width,
+            "slots": -(-t // width), "mask": None, "g_lse": False, "via_autograd": False,
+            "tolerance_of_scale": GRAD_TOL, "bit_identical_twice": identical,
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "err_of_scale": {k: e[1] for k, e in errs.items()},
+            "row_tolerance": ROW_TOL, "row_err": {k: e[2] for k, e in errs.items()}}
+    # faults the row check must reject, each held against the plain
+    # version: the last slot's contributions dropped (what a kernel that
+    # lost that slot's dQ partial and its keys' dK/dV would give: the
+    # plain version with those keys masked), the late half of dQ zeroed,
+    # and dV past the first slot zeroed
+    but_last = torch.ones((b, t), dtype=torch.bool, device="cuda")
+    but_last[:, (t - 1) // width * width:] = False
+    dropped = flash_bwd_streamk_plain(q, k, v, o, lse, do, None, but_last, True, scale,
+                                      width, by_head=True)
+    dq_late, dv_early = got[0].clone(), got[2].clone()
+    dq_late[:, t // 2:] = 0
+    dv_early[:, width:] = 0
+    full["planted_faults"] = _check_rejects("flash_bwd_streamk", {
+        "last slot's keys dropped": dropped,
+        "dQ rows t >= T/2 zeroed": (dq_late, got[1], got[2]),
+        "dV of keys past the first slot zeroed": (got[0], got[1], dv_early),
+    }, want)
+    del dropped, dq_late, dv_early
+    cases.append(full)
+    log({"flash_bwd_streamk_check": full})
+    del want
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_ms = cuda_ms(lambda: flash_bwd_streamk_cuda(*args, width), iters=3, warmup=1)
+    workspace = torch.cuda.max_memory_allocated()
+    plain_ms = cuda_ms(lambda: flash_bwd_streamk_plain(*args, width, by_head=True),
+                       iters=1, warmup=1)
+    merged = flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    merged_vs = {n: _rel_err(x, w) for n, x, w in zip(("dq", "dk", "dv"), merged, got)}
+    merged_rows = {n: _row_err(x, w) for n, x, w in zip(("dq", "dk", "dv"), merged, got)}
+    if max(merged_vs.values()) > GRAD_TOL or max(merged_rows.values()) > ROW_TOL:
+        fail(f"B2 forced and B3 disagree at {where}: {merged_vs} of scale, "
+             f"{merged_rows} of a row (tolerance {ROW_TOL})")
+    del merged
+    merged_ms = cuda_ms(lambda: flash_bwd_cuda(*args), iters=3, warmup=1)
+    bound_ms, bound_by, flops, nbytes = flash_bwd_bound_ms(b, t, h, d, True)
+    timing = {
+        "name": "flash_bwd_streamk", "shape": [b, t, h, d], "causal": True,
+        "slot_w": width, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "plain": "flash_bwd_streamk_plain head by head",
+        "library_ms": sdpa_bwd_ms,
+        "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+        "merged_b2_forced_ms": merged_ms, "merged_b2_vs_b3_err_of_scale": merged_vs,
+        "merged_b2_vs_b3_row_err": merged_rows,
+        "peak_allocated_bytes_with_workspace": workspace,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "b2_forced_tflops": flops / (merged_ms * 1e-3) / 1e12,
+    }
+    log({"kernel_timing": timing})
+    return {"cases": cases, "fwd_check": fwd_check, "fwd_timing": fwd_timing,
+            "timing": timing, "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
 def _xent_inputs(g, n, v, d, pad_rows=0):
@@ -464,8 +771,10 @@ def phase_xent():
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
     n, v, d = TRAIN_BATCH * 2048, 32000, 768
-    # the training path's shape, then an odd N and V with padding rows
-    cases = [_xent_case(g, n, v, d), _xent_case(g, 300, 32001, d, pad_rows=20)]
+    # the training path's shape, an odd N and V with padding rows, and
+    # the long-context path's N = 1 x 32768
+    cases = [_xent_case(g, n, v, d), _xent_case(g, 300, 32001, d, pad_rows=20),
+             _xent_case(g, LONG_BATCH * LONG_T, v, d)]
     for c in cases:
         log({"xent_check": c})
     torch.cuda.empty_cache()
@@ -674,10 +983,12 @@ def _grads(params) -> dict:
     return {n: p.grad.detach().clone() for n, p in params.named_parameters()}
 
 
-def _parity_plain_vs_kernels(model, trainer, it):
-    """Step-0 loss and gradients at batch ``PARITY_BATCH``: the kernel
-    path against the plain path (flash_attention_plain through torch
+def _parity_plain_vs_kernels(trainer, batch, want_launches, kernel_patches=()):
+    """Step-0 loss and gradients on ``batch``: the kernel path (with
+    ``kernel_patches``, ``mock.patch.object`` argument triples, applied)
+    against the plain path (flash_attention_plain through torch
     autograd, tied_vocab_xent), which launches no kernel."""
+    from contextlib import ExitStack
     from unittest import mock
 
     import torch
@@ -689,9 +1000,16 @@ def _parity_plain_vs_kernels(model, trainer, it):
     def plain_attention(q, k, v, causal=False, scale=None, kv_mask=None):
         return flash_attention_plain(q, k, v, causal, scale, kv_mask)[0]
 
-    batch = it.device_batch(0, "cuda", world=TRAIN_BATCH // PARITY_BATCH, rank=0)
     state = trainer.init_state()
-    loss_k, _ = trainer.loss_and_grads(state, batch)
+    with ExitStack() as stack:
+        for patch in kernel_patches:
+            stack.enter_context(mock.patch.object(*patch))
+        _reset_launches()
+        loss_k, _ = trainer.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        launches = _all_launches()
+    if launches != want_launches:
+        fail(f"the kernel path launched {launches}, want {want_launches}")
     grads_k = _grads(state.params)
     _reset_launches()
     with mock.patch.object(tlm, "fused_attention", plain_attention), \
@@ -704,11 +1022,13 @@ def _parity_plain_vs_kernels(model, trainer, it):
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_errs = {n: _rel_err(grads_k[n], grads_p[n]) for n in grads_p}
     worst = max(grad_errs, key=grad_errs.get)
+    shape = list(batch["tokens"].shape)
     if loss_err > TRAIN_LOSS_TOL or grad_errs[worst] > GRAD_TOL:
-        fail(f"batch-{PARITY_BATCH} step 0, kernels vs plain: loss error {loss_err} "
+        fail(f"tokens {shape} step 0, kernels vs plain: loss error {loss_err} "
              f"(tolerance {TRAIN_LOSS_TOL}), worst gradient {worst} error "
              f"{grad_errs[worst]} of its scale (tolerance {GRAD_TOL})")
-    return {"batch": PARITY_BATCH, "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+    return {"tokens_shape": shape, "launches_kernel_path": launches,
+            "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
             "loss_rel_err": loss_err, "loss_tolerance": TRAIN_LOSS_TOL,
             "worst_grad": worst, "worst_grad_err_of_scale": grad_errs[worst],
             "grad_tolerance_of_scale": GRAD_TOL,
@@ -723,8 +1043,8 @@ def phase_training():
 
     model = get_model("transformer_lm")  # full width: bf16 compute, f32 params
     layers = model.decode.layers
-    want = {"flash_fwd": layers, "flash_bwd": layers, "xent_fwd": 1, "xent_dy": 1,
-            "xent_de": 1}
+    want = {"flash_fwd": layers, "flash_bwd": layers, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
     t0 = time.perf_counter()
     trainer = Trainer(model, lr=TRAIN_LR, device="cuda", seed=SEED)
     state = trainer.init_state()
@@ -777,7 +1097,8 @@ def phase_training():
     flops = TRAIN_BATCH * model.flops_per_example
     del state, batch0
     torch.cuda.empty_cache()
-    parity = _parity_plain_vs_kernels(model, trainer, it)
+    parity = _parity_plain_vs_kernels(
+        trainer, it.device_batch(0, "cuda", world=TRAIN_BATCH // PARITY_BATCH, rank=0), want)
     result = {
         "model": "transformer_lm", "batch": TRAIN_BATCH, "seq_len": model.tokens_per_example,
         "lr": TRAIN_LR, "setup_s": setup_s, "steps": steps,
@@ -790,6 +1111,106 @@ def phase_training():
         "parity": parity,
     }
     log({"training": result})
+    return result
+
+
+# -- phase 6 --------------------------------------------------------------
+
+
+def phase_longcontext_training():
+    import importlib
+
+    import torch
+
+    import edl_tpu_torch.models.transformer_lm as tlm
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import ShardedDataIterator, Trainer, synthetic_dataset
+
+    fa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
+    model = get_model("longcontext_lm", seq_len=LONG_T)  # full width
+    layers = model.decode.layers
+    if fa.bwd_impl(LONG_T, 64) != "streamk":
+        fail(f"the dispatch does not send T={LONG_T} to B3")
+    want = {"flash_fwd": layers, "flash_bwd": 0, "flash_bwd_streamk": layers,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    t0 = time.perf_counter()
+    trainer = Trainer(model, lr=TRAIN_LR, device="cuda", seed=SEED)
+    state = trainer.init_state()
+    it = ShardedDataIterator(
+        synthetic_dataset(model.synth_batch, 8 * LONG_BATCH, seed=SEED), LONG_BATCH, seed=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    batch0 = it.device_batch(0, "cuda")
+    loss_a, _ = trainer.loss_and_grads(state, batch0)
+    grads_a = _grads(state.params)
+    loss_b, _ = trainer.loss_and_grads(state, batch0)
+    identical = torch.equal(loss_a, loss_b) and all(
+        torch.equal(grads_a[n], p.grad) for n, p in state.params.named_parameters())
+    if not identical:
+        fail("two runs of long-context training step 0 from one state differ")
+    del grads_a
+
+    steps = []
+    timed_launches = dict.fromkeys(want, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(LONG_STEPS + 1):  # one warm-up step, then the timed ones
+        batch = it.device_batch(step, "cuda")
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _all_launches()
+        if launches != want:
+            fail(f"long-context step {step} launched {launches}, want {want} per step")
+        if step:
+            for k in timed_launches:
+                timed_launches[k] += launches[k]
+        loss = metrics["loss"].item()
+        if not np.isfinite(loss):
+            fail(f"long-context step {step}: loss {loss} is not finite")
+        steps.append({"step": step, "loss": loss, "ms": wall_ms})
+    peak = torch.cuda.max_memory_allocated()
+    loss0 = loss_a.item()
+    eval0 = trainer.eval_loss(state, batch0).item()
+    if not (steps[-1]["loss"] < steps[0]["loss"] and eval0 < loss0):
+        fail(f"the long-context loss did not fall over {LONG_STEPS} steps: step losses "
+             f"{[x['loss'] for x in steps]}, batch-0 loss {loss0} -> {eval0}")
+    step_ms = float(np.median([x["ms"] for x in steps[1:]]))
+    tokens = LONG_BATCH * model.tokens_per_example
+    flops = LONG_BATCH * model.flops_per_example
+    del state, batch0, trainer
+    torch.cuda.empty_cache()
+
+    # kernel path vs plain path at T=2048, B3 forced at 8 slots
+    short = get_model("longcontext_lm", seq_len=LONG_PARITY_T)
+    short_trainer = Trainer(short, lr=TRAIN_LR, device="cuda", seed=SEED)
+    short_it = ShardedDataIterator(
+        synthetic_dataset(short.synth_batch, 8, seed=SEED), LONG_BATCH, seed=SEED)
+
+    def streamk_attention(q, k, v, causal=False, scale=None, kv_mask=None):
+        return fa.flash_attention(q, k, v, causal, scale, kv_mask,
+                                  bwd_block_k=LONG_PARITY_SLOT)
+
+    parity = _parity_plain_vs_kernels(
+        short_trainer, short_it.device_batch(0, "cuda"), want,
+        ((fa, "_BWD_IMPL_OVERRIDE", "streamk"), (tlm, "fused_attention", streamk_attention)))
+    parity["slot_w"] = LONG_PARITY_SLOT
+    parity["slots"] = LONG_PARITY_T // LONG_PARITY_SLOT
+    result = {
+        "model": "longcontext_lm", "batch": LONG_BATCH, "seq_len": model.tokens_per_example,
+        "lr": TRAIN_LR, "setup_s": setup_s, "steps": steps,
+        "step_ms_median": step_ms, "tokens_per_s": tokens / (step_ms * 1e-3),
+        "mfu": flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
+        "flops_per_step": flops, "peak_allocated_bytes": peak,
+        "launches_per_step": want,
+        "launches_timed_steps": timed_launches,
+        "bit_identical_step0": identical, "batch0_loss": [loss0, eval0],
+        "parity": parity,
+    }
+    log({"longcontext_training": result})
     return result
 
 
@@ -807,20 +1228,25 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    kernels = {"flash_fwd": phase_kernels(), "flash_bwd": phase_flash_bwd()}
+    kernels = {"flash_fwd": phase_kernels(), "flash_bwd": phase_flash_bwd(),
+               "flash_bwd_streamk": phase_long_kernels()}
     xent = phase_xent()
     serving = phase_serving()
     training = phase_training()
-    timings = {"flash_fwd": kernels["flash_fwd"]["timing"],
-               "flash_bwd": kernels["flash_bwd"]["timing"], **xent["timing"]}
-    errors = {"flash_fwd": kernels["flash_fwd"]["max_abs_err"],
-              "flash_bwd": kernels["flash_bwd"]["max_abs_err"], **xent["max_abs_err"]}
-    launches = {"flash_fwd": serving["launches"]["flash_fwd"],
-                **{k: v for k, v in training["launches_timed_steps"].items()
-                   if k != "flash_fwd"}}
+    long_training = phase_longcontext_training()
+    timings = {name: kernels[name]["timing"] for name in kernels}
+    timings.update(xent["timing"])
+    errors = {name: kernels[name]["max_abs_err"] for name in kernels}
+    errors.update(xent["max_abs_err"])
+    # each kernel's launches on its own path: B1 on the serving run, B2
+    # and B4-B6 on the T=2048 training steps, B3 on the long-context ones
+    launches = {**training["launches_timed_steps"], "flash_fwd": serving["launches"]["flash_fwd"],
+                "flash_bwd_streamk": long_training["launches_timed_steps"]["flash_bwd_streamk"]}
     sources = {
         "flash_fwd": ("edl_tpu_torch/ops/csrc/flash_fwd.cu", "edl_tpu/ops/flash_attention.py:203"),
         "flash_bwd": ("edl_tpu_torch/ops/csrc/flash_bwd.cu", "edl_tpu/ops/flash_attention.py:341"),
+        "flash_bwd_streamk": ("edl_tpu_torch/ops/csrc/flash_bwd_streamk.cu",
+                              "edl_tpu/ops/flash_attention.py:495"),
         "xent_fwd": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:54"),
         "xent_dy": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:151"),
         "xent_de": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:188"),

@@ -1,10 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  At
-first use ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
-library under ``build/kernels/`` at the repository root (git-ignored),
-and ``ctypes`` loads it.  The library's file name carries a hash of the
-source and the flags, so an edited source never loads a stale build.
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface (the
+backward kernels share the tile helpers of ``csrc/*.cuh``).  At first
+use ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library
+under ``build/kernels/`` at the repository root (git-ignored), and
+``ctypes`` loads it.  The library's file name carries a hash of the
+source, the local headers it includes and the flags, so an edited
+source or header never loads a stale build, and a header edit rebuilds
+only the kernels that include it.
 Only the sources in the repository are compiled; nothing is fetched.
 
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_fwd", "flash_bwd", "fused_xent")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "fused_xent")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,8 +61,25 @@ def nvcc() -> str:
     )
 
 
+#: a local ``#include "x.cuh"`` line of a kernel source
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path`` followed by every local header it includes, recursively,
+    each once."""
+    text = path.read_bytes()
+    out = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = path.parent / inc.decode()
+        if header not in seen:
+            seen.add(header)
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

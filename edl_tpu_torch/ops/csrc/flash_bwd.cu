@@ -46,187 +46,10 @@
 // of a fused QKV projection need no copy); dQ, dK, dV are written
 // contiguous [B, T, H, D]; lse, g_lse and delta are [B*H, Tq] f32.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "flash_bwd_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per tile: 4 warps x 16 rows
-constexpr int BK = 64;  // keys per tile: 4 warps x 16 keys
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int DELTA_THREADS = 256;
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
-
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-// Shared-memory layout, shared by the dK/dV and the dQ kernels.  Rows
-// are padded (8 16-bit or 4 f32 values) so the WMMA tiles of
-// consecutive rows fall in different banks; every region and every
-// 16-row tile offset stays 32-byte aligned, as load/store_matrix_sync
-// require.  The f32 staging of the outputs reuses S and dP.
-template <int D>
-struct Smem {
-  static constexpr int LDQ = D + 8;   // Q, K, V, dO rows (16-bit)
-  static constexpr int LDS = BK + 4;  // S, dP rows (f32)
-  static constexpr int LDP = BK + 8;  // P, dS rows (16-bit)
-  static constexpr int LDO = D + 4;   // output staging rows (f32)
-  static constexpr size_t tile_bytes = size_t(64) * LDQ * 2;
-  static constexpr size_t s_bytes = size_t(BQ) * LDS * 4;
-  static constexpr size_t p_bytes = size_t(BQ) * LDP * 2;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + tile_bytes;
-  static constexpr size_t k_off = do_off + tile_bytes;
-  static constexpr size_t v_off = k_off + tile_bytes;
-  static constexpr size_t s_off = v_off + tile_bytes;
-  static constexpr size_t dp_off = s_off + s_bytes;
-  static constexpr size_t p_off = dp_off + s_bytes;
-  static constexpr size_t ds_off = p_off + p_bytes;
-  static constexpr size_t total = ds_off + p_bytes;
-  static_assert(size_t(64) * LDO * 4 <= 2 * s_bytes,
-                "output staging must fit in the S and dP regions");
-};
-
-// Stage rows [row0, row0 + 64) of one (batch, head) slice into shared
-// memory, 16 bytes per thread per step; rows at or past n_rows are
-// zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int n_rows, int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int LD = Smem<D>::LDQ;
-  for (int i = tid; i < 64 * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// S = Q K^T and dP = dO V^T for this warp's 16 query rows and all 64
-// keys of the tile, f32, into shared memory.  K (and V) row-major is
-// K^T (V^T) column-major.
-template <typename T, int D>
-__device__ __forceinline__ void score_tiles(const T* sQ, const T* sK,
-                                            const T* sDO, const T* sV,
-                                            float* sS, float* sDP, int warp) {
-  using S = Smem<D>;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    const T* a_src = pass == 0 ? sQ : sDO;
-    const T* b_src = pass == 0 ? sK : sV;
-    float* out = pass == 0 ? sS : sDP;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(af[kk], a_src + warp * 16 * S::LDQ + kk * 16,
-                             S::LDQ);
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, b_src + n * 16 * S::LDQ + kk * 16, S::LDQ);
-        wmma::mma_sync(acc, af[kk], bf, acc);
-      }
-      wmma::store_matrix_sync(out + warp * 16 * S::LDS + n * 16, acc, S::LDS,
-                              wmma::mem_row_major);
-    }
-  }
-}
-
-// P and dS for one query row, 32 of its keys (the lane pair (2r, 2r+1)
-// of a warp owns row r, one half of the columns each).  Masked entries
-// and rows past Tq give P = 0 and dS = 0, as exp(NEG_INF - lse) does in
-// the TPU kernel.
-template <typename T, int D>
-__device__ __forceinline__ void probs_row(const float* sS, const float* sDP,
-                                          T* sP, T* sDS, int r, int half,
-                                          int q_pos, int k0, float lse_r,
-                                          float delta_r, float scale,
-                                          bool need_mask, int causal, int Tq,
-                                          int Tk, const uint8_t* mrow,
-                                          bool write_p) {
-  using S = Smem<D>;
-  const float* srow = sS + r * S::LDS + half * 32;
-  const float* dprow = sDP + r * S::LDS + half * 32;
-  T* prow = sP + r * S::LDP + half * 32;
-  T* dsrow = sDS + r * S::LDP + half * 32;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    bool keep = true;
-    if (need_mask) {
-      const int kp = k0 + half * 32 + j;
-      keep = q_pos < Tq && kp < Tk && (!causal || kp <= q_pos) &&
-             (mrow == nullptr || mrow[kp] != 0);
-    }
-    const float p = keep ? expf(srow[j] * scale - lse_r) : 0.f;
-    const float ds = p * (dprow[j] - delta_r);
-    if (write_p) prow[j] = from_float<T>(p);
-    dsrow[j] = from_float<T>(ds);
-  }
-}
-
-// Write this warp's 16 rows of a [64, D] f32 result (WMMA accumulators,
-// times `mul`) as T into rows row0 + warp*16 ... of a contiguous
-// [B, T, H, D] tensor; rows at or past n_rows are not written.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    float mul, float* staging, T* out, int b, int h, int H, int T_len,
-    int row0, int n_rows, int warp, int lane) {
-  using S = Smem<D>;
-  float* st = staging + warp * 16 * S::LDO;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= mul;
-    wmma::store_matrix_sync(st + n * 16, acc[n], S::LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 8;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const int t = row0 + warp * 16 + r;
-    if (t >= n_rows) continue;
-    alignas(16) T pack[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) pack[j] = from_float<T>(st[r * S::LDO + c + j]);
-    *reinterpret_cast<uint4*>(out + ((long long)(b * T_len + t) * H + h) * D + c) =
-        *reinterpret_cast<const uint4*>(pack);
-  }
-  __syncwarp();
-}
-
-// delta[b*H + h, t] = sum_d dO * O (f32) - g_lse.  D/8 lanes per row,
-// 16 bytes each, reduced by shuffles; rows in (b, t, h) order so the
-// reads of a warp are contiguous.
 template <typename T, int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -234,56 +57,9 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int B, int H, int Tq,
                        long long o_sb, long long o_st, long long o_sh,
                        long long d_sb, long long d_st, long long d_sh) {
-  constexpr int CH = D / 8;
-  const long long gid = (long long)blockIdx.x * DELTA_THREADS + threadIdx.x;
-  const long long row = gid / CH;
-  const int part = (int)(gid % CH);
-  const long long rows = (long long)B * Tq * H;
-  float acc = 0.f;
-  int b = 0, t = 0, h = 0;
-  if (row < rows) {
-    h = (int)(row % H);
-    t = (int)((row / H) % Tq);
-    b = (int)(row / ((long long)H * Tq));
-    const uint4 ou = *reinterpret_cast<const uint4*>(o + b * o_sb + t * o_st +
-                                                     h * o_sh + part * 8);
-    const uint4 du = *reinterpret_cast<const uint4*>(dout + b * d_sb +
-                                                     t * d_st + h * d_sh +
-                                                     part * 8);
-    const T* ov = reinterpret_cast<const T*>(&ou);
-    const T* dv = reinterpret_cast<const T*>(&du);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc += to_float(ov[j]) * to_float(dv[j]);
-  }
-#pragma unroll
-  for (int off = CH / 2; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (row < rows && part == 0) {
-    const long long idx = (long long)(b * H + h) * Tq + t;
-    delta[idx] = acc - (glse != nullptr ? glse[idx] : 0.f);
-  }
+  delta_rows<T, D>(o, dout, glse, delta, B, H, Tq, o_sb, o_st, o_sh, d_sb,
+                   d_st, d_sh);
 }
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  const uint8_t* kv_mask;
-  void* dq;
-  void* dk;
-  void* dv;
-  int H, Tq, Tk;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long d_sb, d_st, d_sh;
-  float scale;
-  int causal;
-};
 
 // dK and dV of one (batch*head, 64-key tile).
 template <typename T, int D>
@@ -467,20 +243,14 @@ template <typename T, int D>
 cudaError_t launch(const Args& a, int B, const void* o, const long long* os,
                    const float* glse, float* delta, cudaStream_t stream) {
   using S = Smem<D>;
-  const long long rows = (long long)B * a.Tq * a.H;
-  const long long threads = rows * (D / 8);
-  const unsigned delta_blocks =
-      (unsigned)((threads + DELTA_THREADS - 1) / DELTA_THREADS);
-  if (delta_blocks > 0) {
-    flash_bwd_delta_kernel<T, D><<<delta_blocks, DELTA_THREADS, 0, stream>>>(
-        static_cast<const T*>(o), static_cast<const T*>(a.dout), glse, delta, B,
-        a.H, a.Tq, os[0], os[1], os[2], a.d_sb, a.d_st, a.d_sh);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  const long long ds[3] = {a.d_sb, a.d_st, a.d_sh};
+  cudaError_t err = launch_delta<T, D>(flash_bwd_delta_kernel<T, D>, o, os,
+                                       a.dout, ds, glse, delta, B, a.H, a.Tq,
+                                       stream);
+  if (err != cudaSuccess) return err;
   auto dkdv = flash_bwd_dkdv_kernel<T, D>;
   auto dq = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -7,15 +7,17 @@ Public functions take and return the JAX package's layout:
 
 - On a CUDA tensor the forward launches the hand-written kernel
   ``csrc/flash_fwd.cu`` (replacing the TPU kernel ``_fwd_kernel``) and
-  the backward ``csrc/flash_bwd.cu`` (replacing the merged backward
-  ``_bwd_kernel``), both built at first use (see ``_build``).  Anything
-  the kernels do not take raises; nothing falls back to the plain
-  versions.  Shapes for which the JAX package takes its streaming-K
-  backward (``_bwd_streamk_kernel``, not ported yet) raise in the
-  backward rather than run the merged one in its place.
+  the backward one of two, picked as the JAX package's ``_bwd_common``
+  picks (``bwd_impl``): ``csrc/flash_bwd.cu`` (replacing the merged
+  backward ``_bwd_kernel``) where ``merged_bwd_fits``, else
+  ``csrc/flash_bwd_streamk.cu`` (replacing the streaming-K backward
+  ``_bwd_streamk_kernel``, dQ as per-slot partials).  All are built at
+  first use (see ``_build``).  Anything the kernels do not take raises;
+  nothing falls back to the plain versions.
 - On a CPU tensor they run ``flash_attention_plain`` and
-  ``flash_bwd_plain``, the plain PyTorch versions of the same functions
-  (what the CPU tests check against the JAX kernels in interpret mode).
+  ``flash_bwd_plain`` / ``flash_bwd_streamk_plain``, the plain PyTorch
+  versions of the same functions (what the CPU tests check against the
+  JAX kernels in interpret mode).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from edl_tpu_torch.ops.ring_attention import NEG_INF
 #: where it launches its kernel and nowhere else; a run that resets the
 #: counts before a path and reads them after shows which kernels the
 #: path went through.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_streamk": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -44,6 +46,24 @@ _MAX_BLOCKS_Y = 65535
 _MERGED_BWD_MAX_T = 16384
 _VMEM_CAP_BYTES = 100 * 1024 * 1024
 
+#: test hook, as the JAX package's: force the backward ("merged" |
+#: "streamk"); None picks by ``merged_bwd_fits``
+_BWD_IMPL_OVERRIDE: Optional[str] = None
+
+#: the streaming-K backward's slot width (keys per dQ partial): the JAX
+#: package's ``_prep`` policy ``min(max(2048, tk // 8), 16384)``, so
+#: about 8 partials at any long T
+_STREAMK_BLOCK_K = 2048
+_STREAMK_MAX_BLOCK_K = 16384
+#: a slot narrower than this from the JAX package's divisor pick is not
+#: taken (a prime T would give 1-key slots); see ``streamk_slot_width``
+_STREAMK_MIN_DIVISOR_SLOT = 512
+#: query chunks per (batch*head, slot) of the streaming-K kernel: its
+#: blocks, and its dK/dV partials per key.  16 at T=32768: 864 blocks,
+#: 4.03 GB of partials; 8 chunks (432 blocks, 2.42 GB) ran slower on
+#: the H100 (PERF.md section 6)
+_STREAMK_Q_CHUNKS = 16
+
 _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -51,6 +71,11 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: [B, T, H] strides of each strided operand, scale, causal, stream
 _FWD_ARGS = [_I32, *[_PTR] * 6, *[_I32] * 5, *[_STRIDES] * 3, ctypes.c_float, _I32, _PTR]
 _BWD_ARGS = [_I32, *[_PTR] * 12, *[_I32] * 5, *[_STRIDES] * 5, ctypes.c_float, _I32, _PTR]
+#: as _BWD_ARGS plus the three partial buffers, the slot width and the
+#: query rows per chunk
+_STREAMK_ARGS = [
+    _I32, *[_PTR] * 15, *[_I32] * 7, *[_STRIDES] * 5, ctypes.c_float, _I32, _PTR,
+]
 
 
 def reset_launch_counts() -> None:
@@ -140,12 +165,105 @@ def flash_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_streamk_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    g_lse: Optional[torch.Tensor],
+    kv_mask: Optional[torch.Tensor],
+    causal: bool,
+    scale: float,
+    slot_w: int,
+    by_head: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The streaming-K backward's function in plain PyTorch, slot by
+    slot (``slot_w`` keys each, the last one ragged): per slot, float32
+    scores of Q against the slot's keys, masked keys at NEG_INF,
+    ``P = exp(S - lse)``; ``delta = rowsum(dO * O) - g_lse`` once per
+    row; ``dS = P * (dP - delta)`` cast to the input dtype before the dK
+    and dQ products, P cast before the dV product; the slot's dK, dV in
+    float32 then cast, dK times ``scale``; its dQ partial in float32
+    times ``scale``, the partials summed in slot order, then cast.  Under
+    a causal mask the rows above a slot's first key see none of its keys
+    and are left out.  ``by_head`` runs one head at a time, which bounds
+    the float32 temporaries to one head's ``[Tq, slot_w]`` scores."""
+    if by_head:
+        parts = [
+            flash_bwd_streamk_plain(
+                q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1],
+                o[:, :, h:h + 1], lse[:, h:h + 1], do[:, :, h:h + 1],
+                None if g_lse is None else g_lse[:, h:h + 1], kv_mask,
+                causal, scale, slot_w,
+            )
+            for h in range(q.shape[2])
+        ]
+        return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+    tq, tk = q.shape[1], k.shape[1]
+    qf, dof = q.float(), do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, tk, slot_w):
+        k1 = min(k0 + slot_w, tk)
+        q0 = k0 if causal else 0
+        kj, vj = k[:, k0:k1].float(), v[:, k0:k1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:], kj) * scale
+        keep = None
+        if causal:
+            rows = torch.arange(q0, tq, device=q.device)[:, None]
+            keep = (rows >= torch.arange(k0, k1, device=q.device)[None])[None, None]
+        if kv_mask is not None:
+            km = kv_mask[:, k0:k1].bool()[:, None, None, :]
+            keep = km if keep is None else keep & km
+        if keep is not None:
+            s = s.masked_fill(~keep, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:, None])
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, q0:], vj)
+        ds = (p * (dp - delta[:, :, q0:, None])).to(q.dtype).float()
+        dv[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof[:, q0:])
+        dk[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, q0:]) * scale
+        dq[:, q0:] += torch.einsum("bhqk,bkhd->bqhd", ds, kj) * scale
+    return dq.to(q.dtype), dk, dv
+
+
 def merged_bwd_fits(tk: int, d: int) -> bool:
     """Whether the JAX package runs its merged backward (B2) at this
     key length and head dim, rather than the streaming-K one (B3):
     ``_merged_bwd_fits`` of ``edl_tpu/ops/flash_attention.py``."""
     residency = 16 * 1024 * 1024 + 4 * tk * d * 12
     return tk <= _MERGED_BWD_MAX_T and residency <= _VMEM_CAP_BYTES
+
+
+def bwd_impl(tk: int, d: int) -> str:
+    """The backward the port runs at this key length and head dim,
+    ``"merged"`` (B2) or ``"streamk"`` (B3), as the JAX package's
+    ``_bwd_common`` picks it: ``_BWD_IMPL_OVERRIDE`` when set, else by
+    ``merged_bwd_fits``.  The same on CUDA and on the CPU."""
+    return _BWD_IMPL_OVERRIDE or ("merged" if merged_bwd_fits(tk, d) else "streamk")
+
+
+def streamk_slot_width(tk: int, bwd_block_k: Optional[int] = None) -> int:
+    """Keys per dQ partial of the streaming-K backward.  The wanted
+    width is ``bwd_block_k`` when the caller names one, else the JAX
+    package's ``min(max(2048, tk // 8), 16384)``, capped at ``tk``.
+    Where the JAX package's pick (``_pick_block``: the largest divisor
+    of ``tk`` not above the wanted width) is at least 512 keys, or is
+    the wanted width itself, it is taken, so the partials are summed in
+    the JAX package's grouping.  Otherwise (a ``tk`` with no such
+    divisor, e.g. a prime) the wanted width is taken with a ragged last
+    slot, where the JAX pick would give slots of a few keys and as many
+    partials (ROADMAP section C)."""
+    want = bwd_block_k or min(max(_STREAMK_BLOCK_K, tk // 8), _STREAMK_MAX_BLOCK_K)
+    want = max(1, min(int(want), tk))
+    for width in range(want, min(want, _STREAMK_MIN_DIVISOR_SLOT) - 1, -1):
+        if tk % width == 0:
+            return width
+    return want
 
 
 def _readable_in_place(x: torch.Tensor) -> bool:
@@ -275,16 +393,12 @@ def flash_bwd_cuda(
     causal: bool,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (delta, dK/dV, dQ) on PyTorch's
-    current stream; returns ``(dq, dk, dv)`` contiguous ``[B, T, H, D]``.
-    Raises for a shape the JAX package would send to its streaming-K
-    backward, on anything the kernels do not take, and if a launch
-    returns a CUDA error."""
-    if not merged_bwd_fits(k.shape[1], q.shape[-1]):
-        raise NotImplementedError(
-            f"streaming-K backward not ported (ROADMAP B3): Tk={k.shape[1]}, "
-            f"D={q.shape[-1]} is past the merged backward's range"
-        )
+    """Launch the merged backward's kernels (delta, dK/dV, dQ) on
+    PyTorch's current stream; returns ``(dq, dk, dv)`` contiguous
+    ``[B, T, H, D]``.  Runs at any T (it keeps no T-sized scratch);
+    ``bwd_impl`` decides when the autograd node calls it.  Raises on
+    anything the kernels do not take and if a launch returns a CUDA
+    error."""
     b, tq, tk, h, d = _check_qkv(
         "flash_bwd_cuda", q, k, v, causal, (("o", o), ("do", do)))
     _check_stat("lse", lse, (b, h, tq), q)
@@ -315,20 +429,90 @@ def flash_bwd_cuda(
     return dq, dk, dv
 
 
+def streamk_chunk_rows(tq: int) -> int:
+    """Query rows per block of the streaming-K kernel: a multiple of its
+    64-row tile, at most ``_STREAMK_Q_CHUNKS`` chunks."""
+    return 64 * max(1, -(-tq // (64 * _STREAMK_Q_CHUNKS)))
+
+
+def flash_bwd_streamk_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    g_lse: Optional[torch.Tensor],
+    kv_mask: Optional[torch.Tensor],
+    causal: bool,
+    scale: float,
+    slot_w: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the streaming-K backward's kernels (delta, the (slot, Q
+    chunk) pairs, the reduce of the partials) on PyTorch's current
+    stream, with ``slot_w`` keys per dQ partial; returns ``(dq, dk, dv)``
+    contiguous ``[B, T, H, D]``.  Allocates the float32 partial buffers
+    (``csrc/flash_bwd_streamk.cu`` states their size).  Raises on
+    anything the kernels do not take and if a launch returns a CUDA
+    error."""
+    b, tq, tk, h, d = _check_qkv(
+        "flash_bwd_streamk_cuda", q, k, v, causal, (("o", o), ("do", do)))
+    _check_stat("lse", lse, (b, h, tq), q)
+    if g_lse is not None:
+        _check_stat("g_lse", g_lse, (b, h, tq), q)
+    if not 1 <= slot_w <= max(tk, 1):
+        raise ValueError(f"slot width {slot_w} must be in [1, Tk={tk}]")
+    mask_ptr = _mask_ptr(kv_mask, b, tk, q)
+    chunk_rows = streamk_chunk_rows(tq)
+    n_slots = -(-tk // slot_w)
+    n_chunks = -(-tq // chunk_rows)
+    tq_pad = -(-tq // 64) * 64
+    fn = _build.entry("flash_bwd_streamk", "edl_flash_bwd_streamk", _STREAMK_ARGS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, tq), **f32)
+    dqp = torch.empty((b * h, n_slots, tq_pad, d), **f32)
+    dkp = torch.empty((b * h, n_chunks, tk, d), **f32)
+    dvp = torch.empty((b * h, n_chunks, tk, d), **f32)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    strides = [
+        (ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, o, do)
+    ]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            None if g_lse is None else g_lse.data_ptr(), mask_ptr,
+            delta.data_ptr(), dqp.data_ptr(), dkp.data_ptr(), dvp.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, tq, tk, d, int(slot_w), chunk_rows, *strides,
+            float(scale), int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_streamk kernel launch failed: cudaError {err}")
+    LAUNCHES["flash_bwd_streamk"] += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention as an autograd node: the kernels on CUDA
-    tensors, the plain versions on CPU tensors.  The lse output is
-    differentiable: its cotangent enters the backward as
-    ``delta - g_lse`` (``d lse / d s = p``), as in the JAX package."""
+    tensors, the plain versions on CPU tensors; the backward is the
+    merged or the streaming-K one as ``bwd_impl`` picks, with
+    ``bwd_block_k`` (or the default policy) for the streaming-K slot
+    width.  The lse output is differentiable: its cotangent enters the
+    backward as ``delta - g_lse`` (``d lse / d s = p``), as in the JAX
+    package."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale):
+    def forward(ctx, q, k, v, kv_mask, causal, scale, bwd_block_k):
         if q.is_cuda:
             o, lse = flash_fwd_cuda(q, k, v, causal, scale, kv_mask)
         else:
             o, lse = flash_attention_plain(q, k, v, causal, scale, kv_mask)
         ctx.save_for_backward(q, k, v, o, lse, kv_mask)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.bwd_block_k = causal, scale, bwd_block_k
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -343,14 +527,15 @@ class _FlashAttention(torch.autograd.Function):
             g_o = g_o.to(q.dtype)
             if not _readable_in_place(g_o):
                 g_o = g_o.contiguous()
-            dq, dk, dv = flash_bwd_cuda(
-                q, k, v, o, lse, g_o, g_lse, kv_mask, ctx.causal, ctx.scale
-            )
+        args = (q, k, v, o, lse, g_o, g_lse, kv_mask, ctx.causal, ctx.scale)
+        if bwd_impl(k.shape[1], q.shape[-1]) == "streamk":
+            slot_w = streamk_slot_width(k.shape[1], ctx.bwd_block_k)
+            run = flash_bwd_streamk_cuda if q.is_cuda else flash_bwd_streamk_plain
+            dq, dk, dv = run(*args, slot_w)
         else:
-            dq, dk, dv = flash_bwd_plain(
-                q, k, v, o, lse, g_o, g_lse, kv_mask, ctx.causal, ctx.scale
-            )
-        return dq, dk, dv, None, None, None
+            run = flash_bwd_cuda if q.is_cuda else flash_bwd_plain
+            dq, dk, dv = run(*args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(
@@ -360,12 +545,15 @@ def flash_attention_with_lse(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
+    bwd_block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention over ``[B, T, H, D]`` that also returns the
     per-row logsumexp: ``(o [B, Tq, H, D], lse [B, H, Tq] float32)``,
     both differentiable.  ``kv_mask``: optional ``[B, Tk]`` bool (True =
-    attend).  CUDA tensors launch the kernels; CPU tensors run the
-    plain versions."""
+    attend).  ``bwd_block_k``: keys per dQ partial of the streaming-K
+    backward (the JAX API's keyword; ``streamk_slot_width`` says how it
+    is used), ignored by the merged one.  CUDA tensors launch the
+    kernels; CPU tensors run the plain versions."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if causal and q.shape[1] != k.shape[1]:
@@ -377,7 +565,9 @@ def flash_attention_with_lse(
         raise ValueError(f"flash attention has no path for device {q.device}")
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.bool).contiguous()
-    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+    if bwd_block_k is not None and bwd_block_k < 1:
+        raise ValueError(f"bwd_block_k must be positive, got {bwd_block_k}")
+    return _FlashAttention.apply(q, k, v, kv_mask, causal, scale, bwd_block_k)
 
 
 def flash_attention(
@@ -387,19 +577,24 @@ def flash_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
+    bwd_block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """``flash_attention_with_lse`` without the lse."""
-    return flash_attention_with_lse(q, k, v, causal, scale, kv_mask)[0]
+    return flash_attention_with_lse(q, k, v, causal, scale, kv_mask, bwd_block_k)[0]
 
 
 __all__ = [
     "LAUNCHES",
+    "bwd_impl",
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_with_lse",
     "flash_bwd_cuda",
     "flash_bwd_plain",
+    "flash_bwd_streamk_cuda",
+    "flash_bwd_streamk_plain",
     "flash_fwd_cuda",
     "merged_bwd_fits",
     "reset_launch_counts",
+    "streamk_slot_width",
 ]

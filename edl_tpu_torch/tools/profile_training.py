@@ -1,15 +1,18 @@
 """Where the training step's time goes, on the card.
 
     python -m edl_tpu_torch.tools.profile_training [--batch 8] [--reps 5]
+    python -m edl_tpu_torch.tools.profile_training --model longcontext_lm \
+        --seq-len 32768 --batch 1 --reps 2
 
-Builds the full-width ``transformer_lm`` ``Trainer`` (seeded weights,
-float32 parameters, bf16 compute, Adam) over ``ShardedDataIterator``
-and, after one warm-up step, measures the train step as host wall time
-per step (ending in a synchronize) and under ``torch.profiler``: device
-time per kernel class (the port's kernels B1, B2, B4-B6 by name, cuBLAS
-products, the optimizer, the rest), the top kernels, launches per step
-and the device's busy share of the wall time.  Prints one JSON line for
-the step and a summary line with the card's name and power limit.
+Builds the ``Trainer`` of a full-width LM (``transformer_lm`` by
+default; seeded weights, float32 parameters, bf16 compute, Adam) over
+``ShardedDataIterator`` and, after one warm-up step, measures the train
+step as host wall time per step (ending in a synchronize) and under
+``torch.profiler``: device time per kernel class (the port's kernels
+B1-B6 by name, cuBLAS products, the optimizer, the rest), the top
+kernels, launches per step and the device's busy share of the wall
+time.  Prints one JSON line for the step and a summary line with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd (B1)"
+    if "flash_bwd_streamk" in n:
+        return "flash_bwd_streamk (B3)"
     if "flash_bwd" in n:
         return "flash_bwd (B2)"
     for mode, label in (("0", "xent_fwd (B4)"), ("1", "xent_dy (B5)"), ("2", "xent_de (B6)")):
@@ -51,6 +56,10 @@ def _kernel_class(name: str) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="transformer_lm",
+                   choices=("transformer_lm", "longcontext_lm"))
+    p.add_argument("--seq-len", type=int, default=None,
+                   help="tokens per example (the model's default when omitted)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
@@ -67,7 +76,7 @@ def main(argv=None) -> int:
     from edl_tpu_torch.models import get_model
     from edl_tpu_torch.runtime import ShardedDataIterator, Trainer, synthetic_dataset
 
-    model = get_model("transformer_lm")
+    model = get_model(args.model, seq_len=args.seq_len)
     trainer = Trainer(model, device="cuda", seed=args.seed)
     state = trainer.init_state()
     it = ShardedDataIterator(
@@ -109,7 +118,7 @@ def main(argv=None) -> int:
     flops = args.batch * model.flops_per_example
     tokens = args.batch * model.tokens_per_example
     step = {
-        "batch": args.batch, "seq_len": model.tokens_per_example,
+        "model": args.model, "batch": args.batch, "seq_len": model.tokens_per_example,
         "host_wall_ms_per_step": wall_ms,
         "tokens_per_s": tokens / (wall_ms * 1e-3),
         "mfu": flops / (wall_ms * 1e-3) / PEAK_BF16_FLOPS,

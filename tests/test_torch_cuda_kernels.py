@@ -18,7 +18,10 @@ from edl_tpu_torch.ops.flash_attention import (
     flash_attention_with_lse,
     flash_bwd_cuda,
     flash_bwd_plain,
+    flash_bwd_streamk_cuda,
+    flash_bwd_streamk_plain,
     flash_fwd_cuda,
+    streamk_slot_width,
 )
 
 #: bf16/f16 tolerance of the repo's flash tests
@@ -152,6 +155,66 @@ def test_flash_backward_through_autograd_on_strided_views(cuda):
         w_l, None, True, 64 ** -0.5,
     )
     for got, w in zip(qkv.grad.unbind(2), want):
+        _close_to_scale(got, w, GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,D,causal,slot_w,dtype,with_glse,masked",
+    [
+        (2, 256, 3, 64, True, 64, torch.bfloat16, False, False),
+        (2, 300, 2, 64, False, 48, torch.bfloat16, True, True),
+        (1, 200, 2, 128, True, 70, torch.bfloat16, True, False),
+        (2, 130, 4, 32, True, 16, torch.float16, False, False),
+        (3, 64, 4, 16, True, 16, torch.bfloat16, True, False),
+    ],
+)
+def test_flash_bwd_streamk_matches_plain(cuda, B, T, H, D, causal, slot_w, dtype,
+                                         with_glse, masked):
+    """B3 against its plain version: slots narrower than, wider than and
+    not a multiple of the 64-key tile, ragged T, a key mask with a fully
+    masked batch row; two runs bit-identical (no atomics)."""
+    q, k, v, do = (_rand(cuda, (B, T, H, D), dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.rand((B, T), generator=cuda, device="cuda") > 0.3
+        mask[-1] = False
+    g_lse = _rand(cuda, (B, H, T), torch.float32) if with_glse else None
+    scale = D ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    args = (q, k, v, o, lse, do, g_lse, mask, causal, scale, slot_w)
+    got = flash_bwd_streamk_cuda(*args)
+    again = flash_bwd_streamk_cuda(*args)
+    torch.cuda.synchronize()
+    want = flash_bwd_streamk_plain(*args)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _close_to_scale(g, w, GRAD_TOL)
+    if masked:
+        for g in got:
+            assert g[-1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_autograd_takes_the_streamk_kernel_past_the_merged_range(cuda):
+    """T=16385 is past ``merged_bwd_fits``: the autograd node launches
+    B3 (not B2) at the default slot width, JAX's divisor pick 565."""
+    q, k, v = (_rand(cuda, (1, 16385, 1, 16), torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    w_o = _rand(cuda, (1, 16385, 1, 16), torch.bfloat16)
+    before = dict(LAUNCHES)
+    o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    (o.float() * w_o.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_bwd_streamk"] == before["flash_bwd_streamk"] + 1
+    assert LAUNCHES["flash_bwd"] == before["flash_bwd"]
+    assert streamk_slot_width(16385) == 565
+    want = flash_bwd_streamk_plain(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), w_o, None,
+        None, True, 0.25, 565,
+    )
+    for got, w in zip((q.grad, k.grad, v.grad), want):
         _close_to_scale(got, w, GRAD_TOL)
 
 

@@ -23,11 +23,13 @@ from edl_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash
 from edl_tpu.ops.ring_attention import reference_attention as jax_reference
 from edl_tpu_torch.ops import fused_attention
 from edl_tpu_torch.ops.flash_attention import (
+    bwd_impl,
     flash_attention,
     flash_attention_plain,
     flash_attention_with_lse,
     flash_bwd_cuda,
     flash_bwd_plain,
+    flash_bwd_streamk_cuda,
     flash_fwd_cuda,
     merged_bwd_fits,
 )
@@ -160,18 +162,22 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention_with_lse(q, k[:, :16], v[:, :16], causal=True)
 
 
-def test_backward_names_the_roadmap_item():
-    """Where the JAX package would take its streaming-K backward (B3,
-    not ported), the CUDA backward raises naming the ROADMAP item
-    instead of running the merged kernel in its place; the model's own
-    T=2048, D=64 stays on the merged one."""
-    assert merged_bwd_fits(2048, 64) and merged_bwd_fits(16384, 64)
+def test_backward_dispatches_past_the_merged_range_to_streamk():
+    """Where the JAX package takes its streaming-K backward (B3), so
+    does the port, on CUDA and CPU alike; the model's own T=2048, D=64
+    and T=16384, D=64 stay on the merged one (B2).  The CUDA wrappers
+    of both backwards refuse CPU tensors rather than fall back."""
+    assert bwd_impl(2048, 64) == bwd_impl(16384, 64) == "merged"
     for t, d in ((16385, 16), (14400, 128)):
         assert not merged_bwd_fits(t, d)
-        q = torch.zeros((1, t, 1, d), dtype=torch.bfloat16)
-        lse = torch.zeros((1, 1, t))
-        with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-            flash_bwd_cuda(q, q, q, q, lse, q, None, None, True, d ** -0.5)
+        assert bwd_impl(t, d) == "streamk"
+    q = torch.zeros((1, 32, 1, 16), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 32))
+    args = (q, q, q, q, lse, q, None, None, True, 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_streamk_cuda(*args, 16)
 
 
 def _jax_grads(q, k, v, do, g_lse, causal, mask, dtype):
