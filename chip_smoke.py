@@ -22,13 +22,17 @@ non-zero on the first failure.  Phases, in order:
    slot); then timed at the main path's largest shape beside its plain
    version, its bound and, where one exists, one PyTorch library call
    computing the same function.
-   B1 flash forward (also at the long-context shape [1, 32768, 12, 64],
-   against its plain version head by head), B2 flash backward, B3
+   B1 flash forward (the edges of its 192-row Q and 128-key K/V tiles,
+   keys shorter than one tile, D = 128, f16, each run twice for bit
+   identity; also at the long-context shape [1, 32768, 12, 64], against
+   its plain version head by head), B2 flash backward, B3
    streaming-K flash backward (forced at small shapes, by dispatch past
-   the merged range, and at [1, 32768, 12, 64] against its plain
-   version head by head, run twice for bit identity, beside B2 forced
-   on the same inputs), B4-B6 fused tied-vocab cross entropy (also at
-   the long-context path's N = 32768).
+   the merged range, with slots that are not a multiple of its 128-key
+   tile, each run twice for bit identity, and at [1, 32768, 12, 64]
+   against its plain version head by head, beside B2 forced on the same
+   inputs), B4-B6 fused tied-vocab cross entropy (also at the
+   long-context path's N = 32768).  B1 and B3 at [1, 32768, 12, 64]
+   must not be slower than their first versions (FIRST_VERSION_MS).
 4. **Serving** — full-width ``transformer_lm`` (seeded random weights)
    behind ``DecodeEngine`` + ``TokenContinuousBatcher`` (monolithic
    prefill) + ``ServingServer`` on loopback; four concurrent
@@ -55,7 +59,8 @@ non-zero on the first failure.  Phases, in order:
    path's step-0 loss and gradients are held against the plain path's
    (the plain path cannot run at T=32768).
 7. **Kernels line** — one JSON object listing every ported kernel with
-   its launches on the main path, error, times and bound.
+   its launches on the main path, error, times and bound (for B1 and B3
+   also the achieved TFLOP/s and the share of the bound).
 8. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
@@ -137,6 +142,11 @@ LONG_STEPS = 3
 LONG_PARITY_T = 2048
 LONG_PARITY_SLOT = 256
 
+#: the first (WMMA) versions of B1 and B3 at [1, 32768, 12, 64] on the
+#: H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): the wgmma/TMA
+#: kernels that replaced them must not be slower
+FIRST_VERSION_MS = {"flash_fwd": 27.47, "flash_bwd_streamk": 66.53}
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
@@ -202,7 +212,9 @@ def phase_build():
     ptxas = {
         name: [
             line.strip() for line in _build.build_log(name).splitlines()
-            if "registers" in line or "spill" in line
+            # registers and spills, and ptxas's "wgmma ... serialized"
+            # warnings (C75xx), per kernel instantiation
+            if "registers" in line or "spill" in line or "Performance Loss" in line
         ]
         for name in _build.KERNELS
     }
@@ -212,29 +224,36 @@ def phase_build():
 # -- phase 3 --------------------------------------------------------------
 
 
-def _qkv(g, b, t, h, d):
+def _qkv(g, b, t, h, d, tk=None, dtype=None):
     import torch
 
+    dtype = dtype or torch.bfloat16
     return [
-        torch.randn((b, t, h, d), generator=g, device="cuda").to(torch.bfloat16)
-        for _ in range(3)
+        torch.randn((b, t if i == 0 else (tk or t), h, d), generator=g,
+                    device="cuda").to(dtype)
+        for i in range(3)
     ]
 
 
-def _flash_case(g, b, t, h, d, causal, mask_kind=None):
-    """One kernel-vs-plain comparison; returns the O and lse errors."""
+def _flash_case(g, b, t, h, d, causal, mask_kind=None, tk=None, dtype=None):
+    """One kernel-vs-plain comparison (``tk`` keys, default ``t``; bf16
+    unless ``dtype``); two kernel runs must be bit-identical.  Returns the
+    O and lse errors."""
     import torch
 
     from edl_tpu_torch.ops.flash_attention import flash_attention_plain, flash_fwd_cuda
 
-    q, k, v = _qkv(g, b, t, h, d)
+    q, k, v = _qkv(g, b, t, h, d, tk, dtype)
     mask = None
     if mask_kind == "row_masked":
-        mask = torch.rand((b, t), generator=g, device="cuda") > 0.25
+        mask = torch.rand((b, k.shape[1]), generator=g, device="cuda") > 0.25
         mask[-1] = False  # one batch row with every key masked
     scale = d ** -0.5
     o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    o2, lse2 = flash_fwd_cuda(q, k, v, causal, scale, mask)
     torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        fail(f"two flash_fwd runs differ at {b=} {t=} {tk=} {d=} {causal=} {mask_kind=}")
     po, plse = flash_attention_plain(q, k, v, causal, scale, mask)
     torch.cuda.synchronize()
     if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
@@ -253,9 +272,10 @@ def _flash_case(g, b, t, h, d, causal, mask_kind=None):
         want = float(np.log(np.float32(1e-30)))
         if (lse[-1] - want).abs().max().item() > 1e-4:
             fail("fully masked row: lse is not log(1e-30)")
-    return {"B": b, "T": t, "H": h, "D": d, "causal": causal,
-            "mask": mask_kind, "o_max_abs_err": o_err, "o_row_err": row_err,
-            "row_tolerance": ROW_TOL, "lse_max_abs_err": lse_err}
+    return {"B": b, "T": t, "Tk": k.shape[1], "H": h, "D": d, "dtype": str(q.dtype),
+            "causal": causal, "mask": mask_kind, "o_max_abs_err": o_err,
+            "o_row_err": row_err, "row_tolerance": ROW_TOL, "lse_max_abs_err": lse_err,
+            "bit_identical_twice": True}
 
 
 def _bound(flops, nbytes) -> tuple:
@@ -291,6 +311,14 @@ def phase_kernels():
         cases.append(_flash_case(g, 1, t, 12, 64, True))
     cases.append(_flash_case(g, 2, 300, 12, 64, False, "row_masked"))
     cases.append(_flash_case(g, TRAIN_BATCH, 2048, 12, 64, True))
+    # the edges of the 128-key K/V tile and the 192-row Q tile, keys
+    # shorter than one tile, D = 128 (two 64-column TMA boxes per row),
+    # f16 with 64-byte rows and a fully masked row
+    for t in (127, 128, 129, 130, 191, 193):
+        cases.append(_flash_case(g, 2, t, 12, 64, True))
+    cases.append(_flash_case(g, 2, 300, 12, 64, False, tk=50))
+    cases.append(_flash_case(g, 1, 4096, 4, 128, True))
+    cases.append(_flash_case(g, 2, 1000, 4, 32, False, "row_masked", dtype=torch.float16))
     for c in cases:
         log({"flash_fwd_check": c})
 
@@ -519,7 +547,11 @@ def _streamk_case(g, b, t, h, d, causal, slot_w=None, mask_kind=None,
     else:
         o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
         got = flash_bwd_streamk_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale, width)
+        again = flash_bwd_streamk_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale, width)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"two B3 runs differ at {where}")
+        del again
     want = flash_bwd_streamk_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale, width,
                                    by_head=True)
     torch.cuda.synchronize()
@@ -567,6 +599,11 @@ def phase_long_kernels():
                       with_glse=True),
         _streamk_case(g, 1, 16384, 4, 128, True, via_autograd=True, with_glse=True),
         _streamk_case(g, 1, 16411, 2, 64, True),  # prime T: ragged last slot
+        # slots that are not a multiple of the 128-key tile (a tile
+        # crosses into the next slot), with and without a key mask
+        _streamk_case(g, 2, 512, 12, 64, False, slot_w=130, mask_kind="row_masked",
+                      with_glse=True),
+        _streamk_case(g, 1, 1000, 12, 64, True, slot_w=333),
     ]
     for c in cases:
         log({"flash_bwd_streamk_check": c})
@@ -807,6 +844,24 @@ def phase_xent():
         log({"kernel_timing": timings[mode]})
     errs = {mode: max(c[mode]["max_abs_err"] for c in cases) for mode in runs}
     return {"cases": cases, "timing": timings, "max_abs_err": errs}
+
+
+# -- phase 3b -------------------------------------------------------------
+
+
+def phase_speed_guard(long_kernels) -> dict:
+    """B1 and B3 at the long-context shape against their first versions'
+    times (FIRST_VERSION_MS): a slower kernel fails the run."""
+    got = {"flash_fwd": long_kernels["fwd_timing"]["kernel_ms"],
+           "flash_bwd_streamk": long_kernels["timing"]["kernel_ms"]}
+    result = {name: {"ms": got[name], "first_version_ms": FIRST_VERSION_MS[name],
+                     "speedup": FIRST_VERSION_MS[name] / got[name]} for name in got}
+    log({"speed_guard": result})
+    for name, r in result.items():
+        if r["ms"] > r["first_version_ms"]:
+            fail(f"{name} at [{LONG_BATCH}, {LONG_T}, 12, 64] took {r['ms']} ms, slower "
+                 f"than its first version's {r['first_version_ms']} ms")
+    return result
 
 
 # -- phase 4 --------------------------------------------------------------
@@ -1230,6 +1285,7 @@ def main() -> int:
     phase_build()
     kernels = {"flash_fwd": phase_kernels(), "flash_bwd": phase_flash_bwd(),
                "flash_bwd_streamk": phase_long_kernels()}
+    phase_speed_guard(kernels["flash_bwd_streamk"])
     xent = phase_xent()
     serving = phase_serving()
     training = phase_training()
@@ -1263,6 +1319,10 @@ def main() -> int:
         "bound_ms": timings[name]["bound_ms"],
         "bound_by": timings[name]["bound_by"],
         "library_ms": timings[name]["library_ms"],
+        # the redesigned kernels: achieved rate and share of the bound
+        **({"shape": timings[name]["shape"], "tflops": timings[name]["tflops"],
+            "bound_share": timings[name]["bound_ms"] / timings[name]["kernel_ms"]}
+           if name in ("flash_fwd", "flash_bwd_streamk") else {}),
     } for name, (source, replaces) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

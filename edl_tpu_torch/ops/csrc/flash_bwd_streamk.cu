@@ -10,86 +10,131 @@
 // g_lse precomputed once per row, dS = P * (dP - delta) cast to the
 // input type before the dK and dQ products and P before the dV product,
 // f32 accumulation.  As in the TPU kernel, the keys are cut into
-// *slots* of `slot_w` keys (the TPU kernel's bwd_block_k: 4096 at
-// T=32768) and dQ comes out as one f32 partial per slot, summed in slot
-// order afterwards.
+// *slots* of `slot_w` keys (4096 at T=32768) and dQ comes out as one f32
+// partial per slot, summed in slot order afterwards.
 //
-// Work split.  One block (4 warps) per (batch*head, slot, Q chunk) pair
-// that the causal mask leaves live; a Q chunk is `chunk_rows` query
-// rows (a multiple of 64; the wrapper picks at most 16 chunks).  The
-// block walks the slot's 64-key tiles in order; for each it keeps K and
-// V in shared memory and sweeps the chunk's 64-row Q tiles from the
-// causal diagonal on, with the f32 dK and dV of the tile's 64 keys in
-// WMMA accumulator registers:
+// Work split.  One block per (batch*head, slot, Q chunk) pair that the
+// causal mask leaves live; a Q chunk is `chunk_rows` query rows (a
+// multiple of 64; the wrapper picks at most 8 chunks).  The block walks
+// the slot's 128-key tiles in order.  Two consumer warpgroups hold 64
+// keys each, with their f32 dK and dV in registers across the sweep of
+// the chunk's 64-row Q tiles from the causal diagonal on; a producer
+// warp streams Q, dO (TMA) and lse, delta through a 2-stage mbarrier
+// ring, and K, V of the key tile (TMA) once per tile.  Per (key tile,
+// Q tile) pair, all wgmma with f32 accumulators in registers:
 //
-//   S = Q K^T, dP = dO V^T       (2 tile products)
-//   dV += P^T dO, dK += dS^T Q   (2)
-//   dQpart[slot] += dS K         (1, read-modify-write of the block's
-//                                 own f32 partial rows, which each warp
-//                                 prefetches into shared memory with
-//                                 cp.async when the pair starts)
+//   S^T = K Q^T, dP^T = V dO^T   (A = K, V; B = Q, dO: shared, K-major)
+//   P^T, dS^T in registers, cast to the input type
+//   dV += P^T dO, dK += dS^T Q   (A = P^T, dS^T from registers; B = dO,
+//                                 Q through the transpose bit)
+//   dQpart[slot] += dS K         (dS^T stored once to shared memory, A
+//                                 through the transpose bit; B = K; all
+//                                 128 keys in one product)
 //
-// five tile products per live pair, nothing recomputed.  The dK/dV of
-// the key tile go out as f32 partials of the chunk; a reduce pass sums
-// the dK/dV partials in chunk order and the dQ partials in slot order
-// and casts.  No block writes rows another block writes, and there are
-// no atomics: two runs give bit-identical results.  Fully masked causal
-// pairs are skipped; the dQ partial rows they would have touched are
-// written as 0, and (slot, chunk) pairs with no live key are neither
-// launched nor read by the reduce.  At T=32768 with 8 slots and 16
-// chunks that is 72 live pairs per batch*head: 864 blocks at B=1, H=12,
-// most of them 64 x 32 tile pairs of work, two blocks per SM.
+// five products per pair, nothing recomputed.  The two warpgroups take
+// the dQ product of alternate Q tiles; its f32 partial rows are loaded
+// into registers when the pair starts (latency hidden behind the other
+// four products), added to the product's fresh accumulator and stored
+// when it ends, read-modify-write by their one owner.  (Loading them
+// into the accumulator itself made ptxas serialize the wgmma pipeline,
+// which ran measurably slower on the H100.)  The dK/dV of the key tile go out as f32 partials of
+// the chunk; a reduce pass sums the dK/dV partials in chunk order and
+// the dQ partials in slot order and casts.  No block writes rows another
+// block writes, and there are no atomics: two runs give bit-identical
+// results.  Fully masked causal pairs are skipped; the dQ partial rows
+// they would have touched are written as 0, and (slot, chunk) pairs with
+// no live key are neither launched nor read by the reduce.
+//
+// What bounds it on the H100.  The function at [1, 32768, 12, 64]
+// causal is its five products, 10*B*H*D*T*(T+1)/2 = 4.12e12 FLOP, 4.17
+// ms at 989 TFLOP/s dense bf16.  The design adds the dQ partial
+// traffic: every live (128-key tile, 64-row Q tile) pair reads and
+// writes 64 x D f32 partial rows (32 KB at D = 64; the first key tile
+// of a slot only writes them).  There, with 8 slots of 4096 keys and 8
+// chunks of 4096 rows, 789,504 live pairs move 25.4 GB, 7.6 ms at 3.35
+// TB/s if every row missed the 50 MB L2 (the 64-key tiles of the first
+// version moved twice that).  The key
+// tile width is the lever: each dQ update covers all 128 keys of the
+// block.
 //
 // Workspace, allocated by the caller (f32, bytes):
 //   dQ partials   B*H * ceil(Tk/slot_w) * round_up(Tq, 64) * D * 4
 //   dK, dV partials  2 * B*H * ceil(Tq/chunk_rows) * Tk * D * 4
 //   delta         B*H * Tq * 4
-// At [1, 32768, 12, 64] with 8 slots and 16 chunks: 0.805 GB + 3.221 GB
-// + 1.6 MB = 4.03 GB.  It does not grow with the number of key tiles.
+// At [1, 32768, 12, 64] with 8 slots and 8 chunks: 0.805 GB + 1.611 GB
+// + 1.6 MB = 2.42 GB, 432 blocks of 36 live pairs per batch*head
+// (streamk_geometry in ops/flash_attention.py computes these).
 //
-// Bound on the H100 at [1, 32768, 12, 64] causal: the five products of
-// the function, 10*B*H*D*T*(T+1)/2 = 4.12e12 FLOP, 4.17 ms at 989
-// TFLOP/s dense bf16 (the partials' 4 GB of traffic is work of this
-// design, not of the function).  This first version (WMMA 16x16x16,
-// S/dP/P/dS round trips through shared memory, synchronous tile loads)
-// is built to be right; its measured time is in PERF.md.  Loading the
-// dQ partial rows where the product needs them, instead of prefetching
-// them, made it 2.5x slower there: the partial rows of the 264 resident
-// blocks (1 MB each at 8 chunks) miss the L2, and each warp waited on
-// the load every pair.
-//
-// Ragged T and ragged slots: Q rows past Tq, keys past Tk and keys past
-// the slot's end are zero-filled and masked, so any T and any slot
-// width work.  Q, K, V, O and dO are read in place from [B, T, H, D]
-// with arbitrary batch/sequence/head strides; dQ, dK, dV are written
-// contiguous [B, T, H, D] of the input type.
+// Ragged T and ragged slots: TMA reads zeros past the sequence's end;
+// Q rows past Tq, keys past Tk and keys past the slot's end are masked,
+// so any T and any slot width work.  Q, K, V, O and dO are read in place
+// from [B, T, H, D] with arbitrary batch/sequence/head strides; dQ, dK,
+// dV are written contiguous [B, T, H, D] of the input type.
 
-#include "flash_bwd_tiles.cuh"
+#include "flash_bwd_delta.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+constexpr int BKT = 128;  // keys per key tile: 2 consumer warpgroups x 64
+constexpr int BQ = 64;    // query rows per Q tile
+constexpr int CONSUMERS = 2;
+constexpr int NTHREADS = 128 * (CONSUMERS + 1);
 constexpr int REDUCE_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory layout: K and V tiles of the key tile, two Q stages (Q,
+// dO, lse * log2(e), delta of 64 rows), two dS^T buffers ([128 keys, 64
+// rows], 128-byte rows), the barriers.  Tiles are D / PW panels of
+// [rows, PW] (hopper.cuh); every region is 1024-byte aligned.
+template <int D>
+struct Layout {
+  static constexpr int PW = D < 64 ? D : 64;
+  static constexpr int NP = D / PW;
+  static constexpr int ROW_BYTES = PW * 2;
+  static constexpr int KPP = PW / 16;
+  static constexpr size_t k_panel = size_t(BKT) * ROW_BYTES;
+  static constexpr size_t q_panel = size_t(BQ) * ROW_BYTES;
+  static constexpr size_t k_bytes = k_panel * NP;  // one K or V tile
+  static constexpr size_t q_bytes = q_panel * NP;  // one Q or dO tile
+  static constexpr size_t v_off = k_bytes;
+  static constexpr size_t stage_off = 2 * k_bytes;
+  static constexpr size_t stats_off = 2 * q_bytes;  // within a stage
+  static constexpr size_t stage_bytes = (2 * q_bytes + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t ds_off = stage_off + 2 * stage_bytes;
+  static constexpr size_t ds_bytes = size_t(BKT) * BQ * 2;
+  static constexpr size_t bar_off = ds_off + 2 * ds_bytes;
+  // 6 barriers, and slack to align the dynamic buffer to 1024 bytes
+  static constexpr size_t total = bar_off + 64 + 1024;
+};
 
 struct StreamkArgs {
-  Args a;             // operands; a.dq/dk/dv are the final outputs
-  float* dqp;         // [B*H, n_slots, Tq_pad, D] f32
-  float* dkp;         // [B*H, n_chunks, Tk, D] f32
-  float* dvp;         // [B*H, n_chunks, Tk, D] f32
-  int B, D;
+  const float* lse;        // [B*H, Tq]
+  const float* delta;      // [B*H, Tq]
+  const uint8_t* kv_mask;  // [B, Tk] or null
+  float* dqp;              // [B*H, n_slots, Tq_pad, D] f32
+  float* dkp;              // [B*H, n_chunks, Tk, D] f32
+  float* dvp;              // [B*H, n_chunks, Tk, D] f32
+  void* dq;                // [B, Tq, H, D]
+  void* dk;                // [B, Tk, H, D]
+  void* dv;                // [B, Tk, H, D]
+  int B, H, Tq, Tk, D;
   int slot_w, n_slots, chunk_rows, n_chunks, Tq_pad;
+  float scale;
+  int causal;
 
   // Slots with at least one live pair in chunk c: all of them without
   // a causal mask, else those whose first key is at or below the
   // chunk's last row (slots 0 .. live_slots(c) - 1).
   __host__ __device__ int live_slots(int c) const {
-    if (!a.causal) return n_slots;
-    const int end = (c + 1) * chunk_rows < a.Tq ? (c + 1) * chunk_rows : a.Tq;
+    if (!causal) return n_slots;
+    const int end = (c + 1) * chunk_rows < Tq ? (c + 1) * chunk_rows : Tq;
     const int live = (end - 1) / slot_w + 1;
     return live < n_slots ? live : n_slots;
   }
   // The first chunk with a live pair in slot j (chunks from it on).
   __host__ __device__ int first_live_chunk(int j) const {
-    return a.causal ? (j * slot_w) / chunk_rows : 0;
+    return causal ? (j * slot_w) / chunk_rows : 0;
   }
   __host__ int live_pairs() const {
     int n = 0;
@@ -98,29 +143,8 @@ struct StreamkArgs {
   }
 };
 
-// The block's shared memory: the backward tiles of Smem<D>, then one
-// f32 [64, D] tile of dQ partial rows (4 warps x 16 rows, each warp's
-// rows its own), prefetched with cp.async while the pair's scores are
-// computed.
-template <int D>
-struct StreamkSmem {
-  static constexpr int LDF = D + 4;  // dQ partial rows (f32)
-  static constexpr size_t dq_off = Smem<D>::total;
-  static constexpr size_t total = dq_off + size_t(BQ) * LDF * 4;
-};
-
-// 16 bytes global -> shared, asynchronous (sm_80+), cached in L2 only.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
+// The delta pass (flash_bwd_delta.cuh), under this file's own name so
+// a profile tells B3's from B2's.
 template <typename T, int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_streamk_delta_kernel(const T* __restrict__ o,
@@ -139,7 +163,7 @@ flash_bwd_streamk_delta_kernel(const T* __restrict__ o,
 // diagonal slot of every chunk (about half the work) last.
 __device__ __forceinline__ void pair_of_block(const StreamkArgs& s, int x,
                                               int& j, int& c) {
-  const int diag = s.a.causal ? 1 : 0;
+  const int diag = s.causal ? 1 : 0;
   for (int cc = s.n_chunks - 1; cc >= 0; --cc) {
     const int n = s.live_slots(cc) - diag;
     if (x < n) {
@@ -153,188 +177,329 @@ __device__ __forceinline__ void pair_of_block(const StreamkArgs& s, int x,
   j = s.live_slots(c) - 1;
 }
 
-// Write this warp's 16 rows of a [64, D] f32 accumulator into rows
-// row0 + warp*16 ... of a row-major [*, D] f32 buffer, through the
-// warp's staging rows; rows at or past n_rows are not written.
-template <int D>
-__device__ __forceinline__ void write_partial_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    float* staging, float* out, int row0, int n_rows, int warp, int lane) {
-  using S = Smem<D>;
-  float* st = staging + warp * 16 * S::LDO;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(st + n * 16, acc[n], S::LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 4;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    const int t = row0 + warp * 16 + r;
-    if (t >= n_rows) continue;
-    *reinterpret_cast<float4*>(out + (long long)t * D + c) =
-        *reinterpret_cast<const float4*>(st + r * S::LDO + c);
-  }
-  __syncwarp();
-}
-
 // One (batch*head, slot, Q chunk) pair: the dQ partial rows of the
 // chunk for this slot, and the chunk's dK/dV partials of the slot's keys.
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_streamk_kernel(StreamkArgs s) {
-  using S = Smem<D>;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const Args& a = s.a;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + S::q_off);
-  T* sDO = reinterpret_cast<T*>(smem + S::do_off);
-  T* sK = reinterpret_cast<T*>(smem + S::k_off);
-  T* sV = reinterpret_cast<T*>(smem + S::v_off);
-  float* sS = reinterpret_cast<float*>(smem + S::s_off);
-  float* sDP = reinterpret_cast<float*>(smem + S::dp_off);
-  T* sP = reinterpret_cast<T*>(smem + S::p_off);
-  T* sDS = reinterpret_cast<T*>(smem + S::ds_off);
-  constexpr int LDF = StreamkSmem<D>::LDF;
-  float* sDQ = reinterpret_cast<float*>(smem + StreamkSmem<D>::dq_off);
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_streamk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const StreamkArgs s) {
+  using L = Layout<D>;
+  constexpr int PW = L::PW;
+  constexpr int NP = L::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 1;
+  uint64_t* q_full = bars + 2;   // [2]
+  uint64_t* q_empty = bars + 4;  // [2]
+  const unsigned char* sk = smem;
+  const unsigned char* sv = smem + L::v_off;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  // warp-uniform to the compiler (a shuffle from lane 0), so branches on
+  // it hold no wgmma in a divergent path
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int bh = blockIdx.x;
+  const int b = bh / s.H;
+  const int h = bh - b * s.H;
   int j, c;
-  pair_of_block(s, blockIdx.x, j, c);
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
+  pair_of_block(s, blockIdx.y, j, c);
 
   const int slot_k0 = j * s.slot_w;
-  const int slot_k1 = min(slot_k0 + s.slot_w, a.Tk);
+  const int slot_k1 = min(slot_k0 + s.slot_w, s.Tk);
+  const int n_kt = (slot_k1 - slot_k0 + BKT - 1) / BKT;
   const int cq0 = c * s.chunk_rows;
-  const int cq1 = min(cq0 + s.chunk_rows, a.Tq);
+  const int cq1 = min(cq0 + s.chunk_rows, s.Tq);
   const int qt_first = cq0 / BQ;
   const int qt_end = (cq1 + BQ - 1) / BQ;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* db = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
-  const float* lse_bh = a.lse + (long long)bh * a.Tq;
-  const float* delta_bh = a.delta + (long long)bh * a.Tq;
-  const uint8_t* mrow = a.kv_mask ? a.kv_mask + (long long)b * a.Tk : nullptr;
-  float* dqp = s.dqp + ((long long)bh * s.n_slots + j) * s.Tq_pad * D;
-  float* dkp = s.dkp + ((long long)bh * s.n_chunks + c) * a.Tk * D;
-  float* dvp = s.dvp + ((long long)bh * s.n_chunks + c) * a.Tk * D;
-
-  // The first key tile sweeps every Q tile a later one does (the
-  // diagonal only moves down), so it stores the dQ partial rows and
-  // the later tiles add to them; the chunk's Q tiles above the slot's
-  // first key see no key of the slot, and their partial rows are 0.
-  const int qt_live0 = a.causal ? max(qt_first, slot_k0 / BQ) : qt_first;
-  for (long long i = (long long)qt_first * BQ * D + tid * 4;
-       i < (long long)qt_live0 * BQ * D; i += NTHREADS * 4) {
-    *reinterpret_cast<float4*>(dqp + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, CONSUMERS * 128);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 32);  // the producer warp's lanes
+      mbar_init(&q_empty[i], CONSUMERS * 128);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const int r = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-
-  for (int k0 = slot_k0; k0 < slot_k1; k0 += BK) {
-    const int k_end = min(k0 + BK, slot_k1);
-    const bool first_tile = k0 == slot_k0;
-    __syncthreads();  // every warp is done with the last K/V tile and staging
-    load_tile<T, D>(sK, kb, a.k_st, k0, k_end, tid);
-    load_tile<T, D>(sV, vb, a.v_st, k0, k_end, tid);
-
-    Acc dk[D / 16], dv[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fill_fragment(dk[n], 0.f);
-      wmma::fill_fragment(dv[n], 0.f);
-    }
-
-    // the first Q tile holding a row at or past key k0
-    const int qt0 = a.causal ? max(qt_first, k0 / BQ) : qt_first;
-    for (int qt = qt0; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      // this warp's 16 dQ partial rows: fetched now (all but the first
-      // key tile), added to once this pair's dS is known
-      float* dq_rows = dqp + (long long)(q0 + warp * 16) * D;
-      float* sdq = sDQ + warp * 16 * LDF;
-      if (!first_tile) {
-        for (int i = lane; i < 16 * (D / 4); i += 32) {
-          const int rr = i / (D / 4);
-          const int cc = (i % (D / 4)) * 4;
-          cp_async16(sdq + rr * LDF + cc, dq_rows + rr * D + cc);
+  if (wg == CONSUMERS) {
+    // ---- producer: warp 0 of the last warpgroup ----
+    setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int lane = tid;
+      const float* lse_bh = s.lse + (long long)bh * s.Tq;
+      const float* delta_bh = s.delta + (long long)bh * s.Tq;
+      int it = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        const int k0 = slot_k0 + t * BKT;
+        if (t > 0) mbar_wait(kv_empty, (t - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(kv_full, (uint32_t)(2 * L::k_bytes));
+          for (int p = 0; p < NP; ++p) {
+            tma_load_4d(smem + p * L::k_panel, &tm_k, kv_full, p * PW, h, k0, b);
+            tma_load_4d(smem + L::v_off + p * L::k_panel, &tm_v, kv_full, p * PW, h,
+                        k0, b);
+          }
         }
-        cp_async_commit();
-      }
-      __syncthreads();  // every warp is done with the previous Q tile
-      load_tile<T, D>(sQ, qb, a.q_st, q0, a.Tq, tid);
-      load_tile<T, D>(sDO, db, a.d_st, q0, a.Tq, tid);
-      __syncthreads();
-
-      score_tiles<T, D>(sQ, sK, sDO, sV, sS, sDP, warp);
-      __syncwarp();
-
-      const int q_pos = q0 + r;
-      const bool in_range = q_pos < a.Tq;
-      const float lse_r = in_range ? lse_bh[q_pos] : 0.f;
-      const float delta_r = in_range ? delta_bh[q_pos] : 0.f;
-      const bool need_mask = (a.causal && k0 + BK - 1 > q0) ||
-                             (k0 + BK > k_end) || (q0 + BQ > a.Tq) ||
-                             (mrow != nullptr);
-      probs_row<T, D>(sS, sDP, sP, sDS, r, half, q_pos, k0, lse_r, delta_r,
-                      a.scale, need_mask, a.causal, a.Tq, k_end, mrow, true);
-      __syncthreads();  // P and dS of all 64 query rows are in place
-
-      // dV += P^T dO and dK += dS^T Q for this warp's 16 keys.  P stored
-      // row-major [q][k] read column-major is P^T.
+        const int qt0 = s.causal ? max(qt_first, k0 / BQ) : qt_first;
+        for (int qt = qt0; qt < qt_end; ++qt, ++it) {
+          const int st = it & 1;
+          const int r = it >> 1;
+          if (r > 0) mbar_wait(&q_empty[st], (r - 1) & 1);
+          unsigned char* stage = smem + L::stage_off + st * L::stage_bytes;
+          float* stats = reinterpret_cast<float*>(stage + L::stats_off);
+          const int q0 = qt * BQ;
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> pt, dst;
-        wmma::load_matrix_sync(pt, sP + kk * 16 * S::LDP + warp * 16, S::LDP);
-        wmma::load_matrix_sync(dst, sDS + kk * 16 * S::LDP + warp * 16, S::LDP);
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> df, qf;
-          wmma::load_matrix_sync(df, sDO + kk * 16 * S::LDQ + n * 16, S::LDQ);
-          wmma::mma_sync(dv[n], pt, df, dv[n]);
-          wmma::load_matrix_sync(qf, sQ + kk * 16 * S::LDQ + n * 16, S::LDQ);
-          wmma::mma_sync(dk[n], dst, qf, dk[n]);
+          for (int rr = lane; rr < BQ; rr += 32) {
+            const int q = q0 + rr;
+            stats[rr] = q < s.Tq ? lse_bh[q] * LOG2E : 0.f;
+            stats[BQ + rr] = q < s.Tq ? delta_bh[q] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&q_full[st], (uint32_t)(2 * L::q_bytes));
+            for (int p = 0; p < NP; ++p) {
+              tma_load_4d(stage + p * L::q_panel, &tm_q, &q_full[st], p * PW, h, q0, b);
+              tma_load_4d(stage + L::q_bytes + p * L::q_panel, &tm_do, &q_full[st],
+                          p * PW, h, q0, b);
+            }
+          } else {
+            mbar_arrive(&q_full[st]);
+          }
         }
-      }
-
-      // dQpart += dS K for this warp's 16 rows, one 16-column block at a
-      // time, read-modify-write of the block's own rows (padded to a
-      // multiple of 64, so the ragged last tile stays in the buffer).
-      if (!first_tile) {
-        cp_async_wait_all();
-        __syncwarp();
-      }
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        Acc acc;
-        if (first_tile) {
-          wmma::fill_fragment(acc, 0.f);
-        } else {
-          wmma::load_matrix_sync(acc, sdq + n * 16, LDF, wmma::mem_row_major);
-        }
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> dsf;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> kf;
-          wmma::load_matrix_sync(dsf, sDS + warp * 16 * S::LDP + kk * 16, S::LDP);
-          wmma::load_matrix_sync(kf, sK + kk * 16 * S::LDQ + n * 16, S::LDQ);
-          wmma::mma_sync(acc, dsf, kf, acc);
-        }
-        wmma::store_matrix_sync(dq_rows + n * 16, acc, D, wmma::mem_row_major);
       }
     }
+  } else {
+    // ---- consumers: 64 keys per warpgroup ----
+    setmaxnreg_inc<232>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int cc = lane % 4;
+    const uint8_t* mrow = s.kv_mask ? s.kv_mask + (long long)b * s.Tk : nullptr;
+    float* dqp = s.dqp + ((long long)bh * s.n_slots + j) * s.Tq_pad * D;
+    float* dkp = s.dkp + ((long long)bh * s.n_chunks + c) * s.Tk * D;
+    float* dvp = s.dvp + ((long long)bh * s.n_chunks + c) * s.Tk * D;
+    const float scale_log2 = s.scale * LOG2E;
 
-    __syncthreads();  // S/dP become the staging area of the dK/dV rows
-    write_partial_rows<D>(dk, sS, dkp, k0, k_end, warp, lane);
-    write_partial_rows<D>(dv, sS, dvp, k0, k_end, warp, lane);
+    // The first key tile sweeps every Q tile a later one does (the
+    // diagonal only moves down), so it stores the dQ partial rows and
+    // the later tiles add to them; the chunk's Q tiles above the slot's
+    // first key see no key of the slot, and their partial rows are 0.
+    const int qt_live0 = s.causal ? max(qt_first, slot_k0 / BQ) : qt_first;
+    for (long long i = (long long)qt_first * BQ * D + threadIdx.x * 4;
+         i < (long long)qt_live0 * BQ * D; i += CONSUMERS * 128 * 4) {
+      *reinterpret_cast<float4*>(dqp + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+    int it = 0;
+    for (int t = 0; t < n_kt; ++t) {
+      const int k0 = slot_k0 + t * BKT;
+      const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
+      const int key0 = kw0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+      const unsigned char* skw = sk + 64 * wg * L::ROW_BYTES;
+      const unsigned char* svw = sv + 64 * wg * L::ROW_BYTES;
+      float dk[NP][PW / 2], dv[NP][PW / 2];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < PW / 2; ++i) dk[p][i] = dv[p][i] = 0.f;
+      mbar_wait(kv_full, t & 1);
+
+      const int qt0 = s.causal ? max(qt_first, k0 / BQ) : qt_first;
+      for (int qt = qt0; qt < qt_end; ++qt, ++it) {
+        const int st = it & 1;
+        const int q0 = qt * BQ;
+        const bool owner = ((qt - qt0) & 1) == wg;  // takes this tile's dQ product
+        const unsigned char* sq = smem + L::stage_off + st * L::stage_bytes;
+        const unsigned char* sdo = sq + L::q_bytes;
+        const float* stats = reinterpret_cast<const float*>(sq + L::stats_off);
+        unsigned char* sds = smem + L::ds_off + ((qt - qt0) & 1) * L::ds_bytes;
+
+        // this tile's dQ partial rows, fetched now and added to dS K once
+        // dS is known (row 16 warp + g + 8 i, column p PW + 8 n + 2 cc + j)
+        float dq[NP][PW / 2], dq_prev[NP][PW / 2];
+        float* dq_rows = dqp + (long long)(q0 + 16 * warp + g) * D + 2 * cc;
+        if (owner) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int n = 0; n < PW / 8; ++n)
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                float2 x = make_float2(0.f, 0.f);
+                if (t > 0) {
+                  x = *reinterpret_cast<const float2*>(dq_rows + 8 * i * D + p * PW + 8 * n);
+                }
+                dq_prev[p][4 * n + 2 * i] = x.x;
+                dq_prev[p][4 * n + 2 * i + 1] = x.y;
+              }
+        }
+
+        // S^T = K Q^T and dP^T = V dO^T: rows = this warpgroup's keys,
+        // columns = the tile's 64 query rows
+        float sacc[BQ / 2], dpacc[BQ / 2];
+        mbar_wait(&q_full[st], (it >> 1) & 1);
+        fence_operand(sacc);
+        fence_operand(dpacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int p = kk / L::KPP;
+          const int koff = (kk % L::KPP) * 32;
+          wgmma_ss<T, 0, 0>(sacc, smem_desc(skw + p * L::k_panel + koff, L::ROW_BYTES),
+                            smem_desc(sq + p * L::q_panel + koff, L::ROW_BYTES), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int p = kk / L::KPP;
+          const int koff = (kk % L::KPP) * 32;
+          wgmma_ss<T, 0, 0>(dpacc, smem_desc(svw + p * L::k_panel + koff, L::ROW_BYTES),
+                            smem_desc(sdo + p * L::q_panel + koff, L::ROW_BYTES), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sacc);
+        fence_operand(dpacc);
+
+        // P^T and dS^T on the fragment: element [4n + 2i + jj] is key
+        // key0 + 8i, query row q0 + 8n + 2cc + jj.  Masked pairs and
+        // rows past Tq give P = 0 and dS = 0.
+        const int k_end = slot_k1;
+        const bool need_mask = (s.causal && kw0 + 63 > q0) || (kw0 + 64 > k_end) ||
+                               (q0 + BQ > s.Tq) || (mrow != nullptr);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int col = 8 * n + 2 * cc + jj;
+            const float lse2 = stats[col];
+            const float dlt = stats[BQ + col];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 4 * n + 2 * i + jj;
+              bool keep = true;
+              if (need_mask) {
+                const int kp = key0 + 8 * i;
+                const int qp = q0 + col;
+                keep = qp < s.Tq && kp < k_end && (!s.causal || kp <= qp) &&
+                       (mrow == nullptr || mrow[kp] != 0);
+              }
+              const float pv = keep ? exp2f(sacc[e] * scale_log2 - lse2) : 0.f;
+              sacc[e] = pv;
+              dpacc[e] = pv * (dpacc[e] - dlt);
+            }
+          }
+        }
+        // register A fragments (k16 steps over the 64 query rows)
+        uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int qd = 0; qd < 4; ++qd) {
+            pf[kk][qd] = pack2<T>(sacc[8 * kk + 2 * qd], sacc[8 * kk + 2 * qd + 1]);
+            dsf[kk][qd] = pack2<T>(dpacc[8 * kk + 2 * qd], dpacc[8 * kk + 2 * qd + 1]);
+          }
+        // dS^T into this tile's buffer: key row 64 wg + 16 warp + g + 8i
+        // of 128-byte rows (64 query rows), in TMA's 128-byte swizzle
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = 64 * wg + 16 * warp + g + 8 * i;
+            *reinterpret_cast<uint32_t*>(sds + row * 128 + ((n ^ (row & 7)) << 4) + 4 * cc) =
+                dsf[n / 2][2 * (n % 2) + i];
+          }
+        fence_proxy_async();
+
+        // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          fence_operand(dk[p]);
+          fence_operand(dv[p]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            wgmma_rs<T, 1>(dv[p], pf[kk],
+                           smem_desc(sdo + p * L::q_panel + kk * 16 * L::ROW_BYTES,
+                                     L::ROW_BYTES),
+                           1);
+            wgmma_rs<T, 1>(dk[p], dsf[kk],
+                           smem_desc(sq + p * L::q_panel + kk * 16 * L::ROW_BYTES,
+                                     L::ROW_BYTES),
+                           1);
+          }
+        wgmma_commit();
+
+        // every dS^T row of this tile is in place: dQ += dS K over the
+        // 128 keys (A = dS^T's buffer, MN-major; B = K, MN-major)
+        named_barrier_sync(1, CONSUMERS * 128);
+        if (owner) {
+#pragma unroll
+          for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+              wgmma_ss<T, 1, 1>(dq[p], smem_desc(sds + kk * 16 * 128, 128),
+                                smem_desc(sk + p * L::k_panel + kk * 16 * L::ROW_BYTES,
+                                          L::ROW_BYTES),
+                                kk > 0);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          fence_operand(dk[p]);
+          fence_operand(dv[p]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          fence_operand(pf[kk]);
+          fence_operand(dsf[kk]);
+        }
+        mbar_arrive(&q_empty[st]);
+        if (owner) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) fence_operand(dq[p]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int n = 0; n < PW / 8; ++n)
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                *reinterpret_cast<float2*>(dq_rows + 8 * i * D + p * PW + 8 * n) =
+                    make_float2(dq[p][4 * n + 2 * i] + dq_prev[p][4 * n + 2 * i],
+                                dq[p][4 * n + 2 * i + 1] + dq_prev[p][4 * n + 2 * i + 1]);
+              }
+        }
+      }
+
+      // the key tile's dK/dV partial rows of this chunk
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * i;
+        if (key >= slot_k1) continue;
+        float* krow = dkp + (long long)key * D + 2 * cc;
+        float* vrow = dvp + (long long)key * D + 2 * cc;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int n = 0; n < PW / 8; ++n) {
+            *reinterpret_cast<float2*>(krow + p * PW + 8 * n) =
+                make_float2(dk[p][4 * n + 2 * i], dk[p][4 * n + 2 * i + 1]);
+            *reinterpret_cast<float2*>(vrow + p * PW + 8 * n) =
+                make_float2(dv[p][4 * n + 2 * i], dv[p][4 * n + 2 * i + 1]);
+          }
+      }
+      mbar_arrive(kv_empty);
+    }
   }
 }
 
@@ -347,7 +512,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 flash_bwd_streamk_reduce_kernel(StreamkArgs s, int mode) {
   constexpr int CH = D / 8;
-  const Args& a = s.a;
+  const StreamkArgs& a = s;
   const int n_t = mode == 0 ? a.Tq : a.Tk;
   const long long gid = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
   const long long row = gid / CH;
@@ -404,28 +569,42 @@ flash_bwd_streamk_reduce_kernel(StreamkArgs s, int mode) {
       *reinterpret_cast<const uint4*>(pv);
 }
 
+
 template <typename T, int D>
-cudaError_t launch(const StreamkArgs& s, const void* o, const long long* os,
-                   const float* glse, float* delta, cudaStream_t stream) {
-  using S = StreamkSmem<D>;
-  const Args& a = s.a;
-  const long long ds[3] = {a.d_sb, a.d_st, a.d_sh};
-  cudaError_t err = launch_delta<T, D>(flash_bwd_streamk_delta_kernel<T, D>, o,
-                                       os, a.dout, ds, glse, delta, s.B, a.H,
-                                       a.Tq, stream);
+cudaError_t launch(const StreamkArgs& s, int dtype, const void* q, const void* k,
+                   const void* v, const void* o, const void* dout,
+                   const long long* qs, const long long* ks, const long long* vs,
+                   const long long* os, const long long* ds, const float* glse,
+                   float* delta, cudaStream_t stream) {
+  using L = Layout<D>;
+  cudaError_t err = launch_delta<T, D>(flash_bwd_streamk_delta_kernel<T, D>, o, os,
+                                       dout, ds, glse, delta, s.B, s.H, s.Tq, stream);
   if (err != cudaSuccess) return err;
   const int pairs = s.live_pairs();
-  if (pairs > 0 && s.B * a.H > 0) {
-    auto kern = flash_bwd_streamk_kernel<T, D>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
+  if (pairs > 0 && s.B * s.H > 0) {
+    if (pairs > 65535) return cudaErrorInvalidValue;
+    CUtensorMap mq, mk, mv, mdo;
+    err = encode_bthd_map(&mq, dtype, q, s.B, s.Tq, s.H, D, qs, L::PW, BQ);
+    if (err == cudaSuccess) {
+      err = encode_bthd_map(&mdo, dtype, dout, s.B, s.Tq, s.H, D, ds, L::PW, BQ);
+    }
+    if (err == cudaSuccess) {
+      err = encode_bthd_map(&mk, dtype, k, s.B, s.Tk, s.H, D, ks, L::PW, BKT);
+    }
+    if (err == cudaSuccess) {
+      err = encode_bthd_map(&mv, dtype, v, s.B, s.Tk, s.H, D, vs, L::PW, BKT);
+    }
     if (err != cudaSuccess) return err;
-    kern<<<dim3(pairs, s.B * a.H), NTHREADS, S::total, stream>>>(s);
+    auto kern = flash_bwd_streamk_kernel<T, D>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::total);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(s.B * s.H, pairs), NTHREADS, L::total, stream>>>(mq, mk, mv, mdo, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   for (int mode = 0; mode < 2; ++mode) {
-    const long long rows = (long long)s.B * a.H * (mode == 0 ? a.Tq : a.Tk);
+    const long long rows = (long long)s.B * s.H * (mode == 0 ? s.Tq : s.Tk);
     const long long blocks = (rows * (D / 8) + REDUCE_THREADS - 1) / REDUCE_THREADS;
     if (blocks == 0) continue;
     flash_bwd_streamk_reduce_kernel<T, D>
@@ -437,18 +616,21 @@ cudaError_t launch(const StreamkArgs& s, const void* o, const long long* os,
 }
 
 template <typename T>
-cudaError_t dispatch_d(const StreamkArgs& s, const void* o,
-                       const long long* os, const float* glse, float* delta,
+cudaError_t dispatch_d(const StreamkArgs& s, int dtype, const void* q,
+                       const void* k, const void* v, const void* o,
+                       const void* dout, const long long* qs, const long long* ks,
+                       const long long* vs, const long long* os,
+                       const long long* ds, const float* glse, float* delta,
                        cudaStream_t stream) {
   switch (s.D) {
     case 16:
-      return launch<T, 16>(s, o, os, glse, delta, stream);
+      return launch<T, 16>(s, dtype, q, k, v, o, dout, qs, ks, vs, os, ds, glse, delta, stream);
     case 32:
-      return launch<T, 32>(s, o, os, glse, delta, stream);
+      return launch<T, 32>(s, dtype, q, k, v, o, dout, qs, ks, vs, os, ds, glse, delta, stream);
     case 64:
-      return launch<T, 64>(s, o, os, glse, delta, stream);
+      return launch<T, 64>(s, dtype, q, k, v, o, dout, qs, ks, vs, os, ds, glse, delta, stream);
     case 128:
-      return launch<T, 128>(s, o, os, glse, delta, stream);
+      return launch<T, 128>(s, dtype, q, k, v, o, dout, qs, ks, vs, os, ds, glse, delta, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -458,13 +640,14 @@ cudaError_t dispatch_d(const StreamkArgs& s, const void* o,
 
 // C interface (loaded with ctypes).  dtype: 0 = bf16, 1 = f16.
 // *_strides: {batch, sequence, head} strides in elements of q/k/v/o/dO
-// (the last dim is contiguous).  lse, glse (or NULL) and the delta
-// scratch are [B*H, Tq] f32; kv_mask is [B, Tk] bytes, 0 = masked, or
-// NULL.  slot_w >= 1 keys per dQ partial; chunk_rows, a positive
-// multiple of 64, query rows per block.  Workspace (see the header):
-// dqp [B*H, ceil(Tk/slot_w), round_up(Tq, 64), D] f32 and dkp, dvp
-// [B*H, ceil(Tq/chunk_rows), Tk, D] f32, none of which needs zeroing.
-// dq/dk/dv are contiguous [B, T, H, D] of the input type.  Launches the
+// (multiples of 8; the last dim is contiguous, the bases 16-byte
+// aligned).  lse, glse (or NULL) and the delta scratch are [B*H, Tq]
+// f32; kv_mask is [B, Tk] bytes, 0 = masked, or NULL.  slot_w >= 1 keys
+// per dQ partial; chunk_rows, a positive multiple of 64, query rows per
+// block.  Workspace (see the header): dqp [B*H, ceil(Tk/slot_w),
+// round_up(Tq, 64), D] f32 and dkp, dvp [B*H, ceil(Tq/chunk_rows), Tk,
+// D] f32, none of which needs zeroing.  dq/dk/dv are contiguous
+// [B, T, H, D] of the input type.  Encodes the TMA maps, launches the
 // delta, pair and two reduce kernels on `stream`, in that order, and
 // returns the first cudaError_t.
 extern "C" int edl_flash_bwd_streamk(
@@ -480,50 +663,36 @@ extern "C" int edl_flash_bwd_streamk(
     return (int)cudaErrorInvalidValue;
   }
   StreamkArgs s;
-  Args& a = s.a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse = lse;
-  a.delta = delta;
-  a.kv_mask = static_cast<const uint8_t*>(kv_mask);
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.H = H;
-  a.Tq = Tq;
-  a.Tk = Tk;
-  a.q_sb = q_strides[0];
-  a.q_st = q_strides[1];
-  a.q_sh = q_strides[2];
-  a.k_sb = k_strides[0];
-  a.k_st = k_strides[1];
-  a.k_sh = k_strides[2];
-  a.v_sb = v_strides[0];
-  a.v_st = v_strides[1];
-  a.v_sh = v_strides[2];
-  a.d_sb = do_strides[0];
-  a.d_st = do_strides[1];
-  a.d_sh = do_strides[2];
-  a.scale = scale;
-  a.causal = causal;
+  s.lse = lse;
+  s.delta = delta;
+  s.kv_mask = static_cast<const uint8_t*>(kv_mask);
   s.dqp = dqp;
   s.dkp = dkp;
   s.dvp = dvp;
+  s.dq = dq;
+  s.dk = dk;
+  s.dv = dv;
   s.B = B;
+  s.H = H;
+  s.Tq = Tq;
+  s.Tk = Tk;
   s.D = D;
   s.slot_w = slot_w;
   s.n_slots = (Tk + slot_w - 1) / slot_w;
   s.chunk_rows = chunk_rows;
   s.n_chunks = (Tq + chunk_rows - 1) / chunk_rows;
   s.Tq_pad = (Tq + BQ - 1) / BQ * BQ;
+  s.scale = scale;
+  s.causal = causal;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)dispatch_d<__nv_bfloat16>(s, o, o_strides, glse, delta, st);
+    return (int)dispatch_d<__nv_bfloat16>(s, dtype, q, k, v, o, dout, q_strides,
+                                          k_strides, v_strides, o_strides,
+                                          do_strides, glse, delta, st);
   }
   if (dtype == 1) {
-    return (int)dispatch_d<__half>(s, o, o_strides, glse, delta, st);
+    return (int)dispatch_d<__half>(s, dtype, q, k, v, o, dout, q_strides, k_strides,
+                                   v_strides, o_strides, do_strides, glse, delta, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,65 +4,59 @@
 //
 // Replaces the TPU kernel edl_tpu/ops/flash_attention.py::_fwd_kernel
 // (launched by _flash_fwd_3d).  Same function, designed for the card
-// rather than copied tile by tile:
+// rather than copied tile by tile.
 //
-// - One thread block (4 warps) per (batch*head, 64-row Q tile); the
-//   TPU's sequential grid over K blocks becomes a loop inside the
-//   block over 64-key K/V tiles staged in shared memory.  Each warp
-//   owns 16 query rows.
-// - Q K^T and P V run on the tensor cores through WMMA 16x16x16
-//   (bf16 or f16 operands, f32 accumulation).  The scale applies to
-//   the f32 product; P is cast to the input type before P V, as the
-//   TPU kernel's p.astype(vb.dtype) does.
-// - The online softmax keeps each row's running max and sum in f32
-//   registers (two lanes per row); the f32 O accumulator lives in
-//   shared memory and is rescaled by exp(m_old - m_new) per tile.
-// - Causal: K tiles wholly above the diagonal are never loaded, and
-//   only tiles that cross the diagonal (or the ragged end of Tk, or a
-//   key mask) pay the per-element mask.  Q rows and keys past the
-//   sequence end are zero-filled and masked here, so any T works
-//   (the TPU kernel picked a divisor tile size instead).
-// - A fully masked row gives O = 0 and lse = log(1e-30), as _safe and
-//   l_safe do in the TPU kernel.  No atomics: the output is
-//   deterministic.
-// - Q, K and V are read in place from [B, T, H, D] with arbitrary
-//   batch/sequence/head strides (the slices of a fused QKV projection
-//   need no copy); O is written contiguous [B, Tq, H, D], lse
-//   contiguous [B, H, Tq] float32.
+// What bounds it.  At the long-context shape ([1, 32768, 12, 64],
+// causal) the function is 4*B*H*D*T*(T+1)/2 = 2.06e12 FLOP, 1.67 ms at
+// 989 TFLOP/s dense bf16, against 201 MB of Q/K/V/O, 0.06 ms at 3.35
+// TB/s: compute-bound at every shape the port runs.  So the design keeps
+// the tensor cores fed and everything else out of their way:
 //
-// Bound on the H100 at the serving shape (B=1, T=2048, H=12, D=64,
-// causal): 4*B*H*D*T*(T+1)/2 = 6.44 GFLOP on the tensor cores, 6.5 us
-// at 989 TFLOP/s dense bf16, against 12.6 MB of Q/K/V/O, 3.8 us at
-// 3.35 TB/s — compute-bound.  This first version (WMMA, shared-memory
-// round trips for S and O, no TMA or wgmma) is built to be right; its
-// measured time is in PERF.md.
+// - One block per (batch*head, Q tile): consumer warpgroups of 64 query
+//   rows each, and a producer warpgroup whose one thread starts every
+//   load; setmaxnreg gives the producer's registers to the consumers.
+//   At D <= 64 three consumers (192-row Q tiles, 160 registers each
+//   against the producer's 32): while one warpgroup runs its softmax,
+//   the other two keep the tensor cores busy (faster than two on the
+//   H100 at the training shapes, in spite of a few spilled registers;
+//   PERF.md).  At D = 128 two (128 rows, 232 registers
+//   against 40), as the larger O accumulator needs.
+// - Loads are TMA tiles ([rows, D] boxes of the strided [B, T, H, D]
+//   operand, swizzled for wgmma, see hopper.cuh).  Q is loaded once;
+//   K and V tiles of 128 keys go through a 2-stage ring of mbarriers
+//   (K and V with barriers of their own, so S = Q K^T starts before V
+//   has landed), so the next tile's load overlaps this tile's products.
+// - S = Q K^T is one wgmma m64n128 per k16 step into registers (A = Q,
+//   B = K, both K-major in shared memory).  The online softmax runs on
+//   the accumulator fragment (each thread holds 2 rows x 32 keys; row
+//   max and sum in f32 registers, quad shuffles), in base 2 with the
+//   scale folded into one multiply.
+// - P is cast to the input type in registers (the TPU kernel's
+//   p.astype(vb.dtype)) and is the register A operand of O += P V
+//   (B = V, MN-major through the descriptor's transpose bit).  The f32 O
+//   accumulator stays in registers for the whole K loop.
+// - Causal: K tiles wholly above the diagonal are never loaded; only
+//   tiles that cross it (or the ragged end of Tk, or a key mask) pay the
+//   per-element mask.  Q tiles are scheduled with the most work first.
+// - Ragged T: TMA reads zeros past the sequence's end; those keys are
+//   masked, those query rows are not written.  A fully masked row gives
+//   O = 0 and lse = log(1e-30), as _safe and l_safe do in the TPU
+//   kernel.  No atomics: the output is deterministic.
+// - O is written contiguous [B, Tq, H, D], lse contiguous [B, H, Tq]
+//   float32.  Q, K and V are read in place through their strides (the
+//   slices of a fused QKV projection need no copy).
+//
+// Shared memory at D = 64: Q 24 KB + 2 x (K 16 KB + V 16 KB) = 88 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int BK = 64;  // keys per K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int BN = 128;  // keys per K/V tile
+constexpr int STAGES = 2;
 constexpr float NEG_INF = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // _safe: a row max still at NEG_INF (nothing attended yet) counts as 0,
 // so exp(NEG_INF - 0) == 0 rather than exp(0) == 1.
@@ -70,235 +64,318 @@ __device__ __forceinline__ float safe_max(float m) {
   return m <= NEG_INF * 0.5f ? 0.f : m;
 }
 
-// Shared-memory layout.  Rows are padded (8 16-bit or 4 f32 values) so
-// the WMMA tiles of consecutive rows fall in different banks; every
-// region and every 16-row tile offset stays 32-byte aligned, as
-// load/store_matrix_sync require.
-template <int D>
-struct Smem {
-  static constexpr int LDQ = D + 8;   // Q, K, V rows (16-bit)
-  static constexpr int LDS = BK + 4;  // S rows (f32)
-  static constexpr int LDP = BK + 8;  // P rows (16-bit)
-  static constexpr int LDO = D + 4;   // O accumulator rows (f32)
-  static constexpr size_t q_bytes = size_t(BQ) * LDQ * 2;
-  static constexpr size_t kv_bytes = size_t(BK) * LDQ * 2;
-  static constexpr size_t s_bytes = size_t(BQ) * LDS * 4;
-  static constexpr size_t p_bytes = size_t(BQ) * LDP * 2;
-  static constexpr size_t o_bytes = size_t(BQ) * LDO * 4;
+// Shared-memory layout: every tile is D / PW panels of [rows, PW] (see
+// hopper.cuh), every region 1024-byte aligned.
+template <int D, int CONS>
+struct Layout {
+  // CONS consumer warpgroups of 64 query rows and one producer
+  // warpgroup; setmaxnreg splits the 64K registers of the SM between
+  // them (128 * PRODUCER_REGS + 128 * CONS * CONSUMER_REGS <= 65536)
+  static constexpr int CONSUMERS = CONS;
+  static constexpr int BM = 64 * CONS;  // query rows per block
+  static constexpr int NTHREADS = 128 * (CONS + 1);
+  static constexpr int PRODUCER_REGS = CONS == 2 ? 40 : 32;
+  static constexpr int CONSUMER_REGS = CONS == 2 ? 232 : 160;
+  static constexpr int PW = D < 64 ? D : 64;  // panel columns
+  static constexpr int NP = D / PW;           // panels
+  static constexpr int ROW_BYTES = PW * 2;
+  static constexpr int KPP = PW / 16;         // k16 steps per panel
+  static constexpr size_t q_panel = size_t(BM) * ROW_BYTES;
+  static constexpr size_t kv_panel = size_t(BN) * ROW_BYTES;
+  static constexpr size_t q_bytes = q_panel * NP;
+  static constexpr size_t kv_bytes = kv_panel * NP;  // one K or V tile
   static constexpr size_t k_off = q_bytes;
-  static constexpr size_t v_off = k_off + kv_bytes;
-  static constexpr size_t s_off = v_off + kv_bytes;
-  static constexpr size_t p_off = s_off + s_bytes;
-  static constexpr size_t o_off = p_off + p_bytes;
-  static constexpr size_t total = o_off + o_bytes;
+  static constexpr size_t v_off = k_off + STAGES * kv_bytes;
+  static constexpr size_t bar_off = v_off + STAGES * kv_bytes;
+  // 7 barriers, and slack to align the dynamic buffer to 1024 bytes
+  static constexpr size_t total = bar_off + 64 + 1024;
 };
 
-// Stage rows [row0, row0 + 64) of one (batch, head) slice into shared
-// memory, 16 bytes per thread per step; rows at or past n_rows are
-// zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int n_rows, int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int LD = Smem<D>::LDQ;
-  for (int i = tid; i < BQ * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
+struct FwdArgs {
+  const uint8_t* kv_mask;  // [B, Tk] or null
+  void* o;                 // [B, Tq, H, D]
+  float* lse;              // [B, H, Tq]
+  int H, Tq, Tk;
+  float scale_log2;        // scale * log2(e)
+  int causal;
+};
+
+template <typename T, int D, int CONS>
+__global__ void __launch_bounds__(Layout<D, CONS>::NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const FwdArgs a) {
+  using L = Layout<D, CONS>;
+  constexpr int PW = L::PW;
+  constexpr int NP = L::NP;
+  constexpr int BM = L::BM;
+  constexpr int CONSUMERS = L::CONSUMERS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;    // [STAGES]
+  uint64_t* v_full = bars + 3;    // [STAGES]
+  uint64_t* kv_empty = bars + 5;  // [STAGES]
+
+  // warp-uniform to the compiler (a shuffle from lane 0), so branches on
+  // it hold no wgmma in a divergent path
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // Highest Q tiles first: under causal masking they carry the most K
+  // tiles, so the long blocks start early and the short ones fill in.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int n_kt = (a.Tk + BN - 1) / BN;
+  if (a.causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMERS * 128);
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    fence_barrier_init();
   }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
-                 int Tk, long long q_sb, long long q_st, long long q_sh,
-                 long long k_sb, long long k_st, long long k_sh,
-                 long long v_sb, long long v_st, long long v_sh, float scale,
-                 int causal) {
-  using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = reinterpret_cast<T*>(smem + S::k_off);
-  T* sV = reinterpret_cast<T*>(smem + S::v_off);
-  float* sS = reinterpret_cast<float*>(smem + S::s_off);
-  T* sP = reinterpret_cast<T*>(smem + S::p_off);
-  float* sO = reinterpret_cast<float*>(smem + S::o_off);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  // Highest Q tiles first: under causal masking they carry the most
-  // K tiles, so the long blocks start early and the short ones fill in.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = qt * BQ;
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  const uint8_t* mrow = kv_mask ? kv_mask + (long long)b * Tk : nullptr;
-
-  load_tile<T, D>(sQ, qb, q_st, q0, Tq, tid);
-  for (int i = tid; i < BQ * S::LDO; i += NTHREADS) sO[i] = 0.f;
-
-  // The softmax and the epilogue give each query row to two lanes:
-  // lane pair (2r, 2r+1) of warp w owns row w*16 + r, one half of its
-  // columns each.
-  const int r = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int q_pos = q0 + r;
-  float m = NEG_INF;
-  float l = 0.f;
-
-  int n_kt = (Tk + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * S::LDQ + kk * 16, S::LDQ);
-  }
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread starts every TMA load ----
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(q_full, (uint32_t)L::q_bytes);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_4d(smem + p * L::q_panel, &tm_q, q_full, p * PW, h, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        const int r = kt / STAGES;
+        if (r > 0) mbar_wait(&kv_empty[s], (r - 1) & 1);
+        unsigned char* sk = smem + L::k_off + s * L::kv_bytes;
+        unsigned char* sv = smem + L::v_off + s * L::kv_bytes;
+        mbar_arrive_expect_tx(&k_full[s], (uint32_t)L::kv_bytes);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_4d(sk + p * L::kv_panel, &tm_k, &k_full[s], p * PW, h, kt * BN, b);
+        }
+        mbar_arrive_expect_tx(&v_full[s], (uint32_t)L::kv_bytes);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_4d(sv + p * L::kv_panel, &tm_v, &v_full[s], p * PW, h, kt * BN, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int c = lane % 4;
+    const int qw0 = q0 + 64 * wg;           // this warpgroup's first row
+    const int row0 = qw0 + 16 * warp + g;   // this thread's rows: row0, row0 + 8
+    const uint8_t* mrow = a.kv_mask ? a.kv_mask + (long long)b * a.Tk : nullptr;
+    const unsigned char* sq = smem + 64 * wg * L::ROW_BYTES;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sK, kb, k_st, k0, Tk, tid);
-    load_tile<T, D>(sV, vb, v_st, k0, Tk, tid);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (K row-major is K^T col-major).
+    float o[NP][PW / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < PW / 2; ++i) o[p][i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};  // running row max, base-2 scaled
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sum
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES;
+      const uint32_t parity = (kt / STAGES) & 1;
+      const int k0 = kt * BN;
+      const unsigned char* sk = smem + L::k_off + s * L::kv_bytes;
+      const unsigned char* sv = smem + L::v_off + s * L::kv_bytes;
+
+      // S = Q K^T for this warpgroup's 64 rows and the tile's 128 keys
+      float sacc[BN / 2];
+      mbar_wait(&k_full[s], parity);
+      fence_operand(sacc);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + n * 16 * S::LDQ + kk * 16, S::LDQ);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
+        const int p = kk / L::KPP;
+        const int koff = (kk % L::KPP) * 32;
+        wgmma_ss<T, 0, 0>(sacc, smem_desc(sq + p * L::q_panel + koff, L::ROW_BYTES),
+                          smem_desc(sk + p * L::kv_panel + koff, L::ROW_BYTES), kk > 0);
       }
-      wmma::store_matrix_sync(sS + warp * 16 * S::LDS + n * 16, sf, S::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sacc);
 
-    // Online softmax over this lane's 32 columns of row r.
-    const bool need_mask =
-        (causal && k0 + BK - 1 > q0) || (k0 + BK > Tk) || (mrow != nullptr);
-    const float* srow = sS + r * S::LDS + half * 32;
-    float s[32];
-    float tmax = NEG_INF;
+      // online softmax on the fragment: sacc[4n + 2i + j] is row
+      // row0 + 8i, key k0 + 8n + 2c + j
+      const bool need_mask =
+          (a.causal && k0 + BN - 1 > qw0) || (k0 + BN > a.Tk) || (mrow != nullptr);
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float x = srow[j] * scale;
-      if (need_mask) {
-        const int kp = k0 + half * 32 + j;
-        const bool keep = kp < Tk && (!causal || kp <= q_pos) &&
-                          (mrow == nullptr || mrow[kp] != 0);
-        if (!keep) x = NEG_INF;
+      for (int i = 0; i < 2; ++i) {
+        const int qp = row0 + 8 * i;
+        float tmax = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float x = sacc[4 * n + 2 * i + j] * a.scale_log2;
+            if (need_mask) {
+              const int kp = k0 + 8 * n + 2 * c + j;
+              const bool keep = kp < a.Tk && (!a.causal || kp <= qp) &&
+                                (mrow == nullptr || mrow[kp] != 0);
+              if (!keep) x = NEG_INF;
+            }
+            sacc[4 * n + 2 * i + j] = x;
+            tmax = fmaxf(tmax, x);
+          }
+        }
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(m[i], tmax);
+        const float m_use = safe_max(m_new);
+        // nothing attended before this tile: O and l are still 0
+        const float alpha = m[i] <= NEG_INF * 0.5f ? 0.f : exp2f(m[i] - m_use);
+        float psum = 0.f;
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float pv = exp2f(sacc[4 * n + 2 * i + j] - m_use);
+            sacc[4 * n + 2 * i + j] = pv;
+            psum += pv;
+          }
+        }
+        l[i] = l[i] * alpha + psum;
+        m[i] = m_new;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int n = 0; n < PW / 8; ++n) {
+            o[p][4 * n + 2 * i] *= alpha;
+            o[p][4 * n + 2 * i + 1] *= alpha;
+          }
       }
-      s[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float m_use = safe_max(m_new);
-    const float alpha = expf(safe_max(m) - m_use);
-    T* prow = sP + r * S::LDP + half * 32;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(s[j] - m_use);
-      psum += p;
-      prow[j] = from_float<T>(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = sO + r * S::LDO + half * (D / 2);
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) orow[j] *= alpha;
-    __syncwarp();
 
-    // O += P V
+      // P in the input type, as the register A fragment of P V
+      uint32_t pf[BN / 16][4];
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, sO + warp * 16 * S::LDO + n * 16, S::LDO,
-                             wmma::mem_row_major);
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, sP + warp * 16 * S::LDP + kk * 16, S::LDP);
-        wmma::load_matrix_sync(vf, sV + kk * 16 * S::LDQ + n * 16, S::LDQ);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * S::LDO + n * 16, of, S::LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
+        for (int qd = 0; qd < 4; ++qd)
+          pf[kk][qd] = pack2<T>(sacc[8 * kk + 2 * qd], sacc[8 * kk + 2 * qd + 1]);
 
-  if (q_pos < Tq) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    const float* orow = sO + r * S::LDO + half * (D / 2);
-    T* og = o + ((long long)(b * Tq + q_pos) * H + h) * D + half * (D / 2);
+      // O += P V
+      mbar_wait(&v_full[s], parity);
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) og[j] = from_float<T>(orow[j] / l_safe);
-    if (half == 0) lse[(long long)bh * Tq + q_pos] = safe_max(m) + logf(l_safe);
+      for (int p = 0; p < NP; ++p) fence_operand(o[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_rs<T, 1>(o[p], pf[kk],
+                         smem_desc(sv + p * L::kv_panel + kk * 16 * L::ROW_BYTES,
+                                   L::ROW_BYTES),
+                         1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_operand(o[p]);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) fence_operand(pf[kk]);
+      mbar_arrive(&kv_empty[s]);
+    }
+
+    // epilogue: O / l and lse for this thread's two rows
+    T* out = static_cast<T*>(a.o);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int qp = row0 + 8 * i;
+      if (qp >= a.Tq) continue;
+      const float l_safe = fmaxf(li, 1e-30f);
+      const float inv = 1.f / l_safe;
+      T* orow = out + ((long long)(b * a.Tq + qp) * a.H + h) * D;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int n = 0; n < PW / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(orow + p * PW + 8 * n + 2 * c) =
+              pack2<T>(o[p][4 * n + 2 * i] * inv, o[p][4 * n + 2 * i + 1] * inv);
+        }
+      if (c == 0) a.lse[(long long)bh * a.Tq + qp] = safe_max(m[i]) * LN2 + logf(l_safe);
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <typename T, int D, int CONS>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, float* lse, int B, int H,
                    int Tq, int Tk, const long long* qs, const long long* ks,
                    const long long* vs, float scale, int causal,
                    cudaStream_t stream) {
-  using S = Smem<D>;
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
+  using L = Layout<D, CONS>;
+  const int n_qt = (Tq + L::BM - 1) / L::BM;
+  if (B * H == 0 || n_qt == 0) return cudaSuccess;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = encode_bthd_map(&mq, dtype, q, B, Tq, H, D, qs, L::PW, L::BM);
+  if (err == cudaSuccess) err = encode_bthd_map(&mk, dtype, k, B, Tk, H, D, ks, L::PW, BN);
+  if (err == cudaSuccess) err = encode_bthd_map(&mv, dtype, v, B, Tk, H, D, vs, L::PW, BN);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NTHREADS, S::total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<T*>(o), lse, H, Tq, Tk, qs[0], qs[1], qs[2], ks[0], ks[1],
-      ks[2], vs[0], vs[1], vs[2], scale, causal);
+  auto kern = flash_fwd_kernel<T, D, CONS>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L::total);
+  if (err != cudaSuccess) return err;
+  FwdArgs a;
+  a.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  a.o = o;
+  a.lse = lse;
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.scale_log2 = scale * LOG2E;
+  a.causal = causal;
+  kern<<<dim3(B * H, n_qt), L::NTHREADS, L::total, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
+// Three consumer warpgroups (192 query rows) where the head dim leaves
+// room in 160 registers a thread, two (128 rows, 232 registers) at D = 128.
+template <typename T, int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   const void* kv_mask, void* o, float* lse, int B, int H,
+                   int Tq, int Tk, const long long* qs, const long long* ks,
+                   const long long* vs, float scale, int causal,
+                   cudaStream_t stream) {
+  return launch<T, D, D <= 64 ? 3 : 2>(dtype, q, k, v, kv_mask, o, lse, B, H, Tq, Tk,
+                                       qs, ks, vs, scale, causal, stream);
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* kv_mask, void* o, float* lse, int B, int H,
-                       int Tq, int Tk, const long long* qs, const long long* ks,
-                       const long long* vs, float scale, int causal,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int dtype, int D, const void* q, const void* k,
+                       const void* v, const void* kv_mask, void* o, float* lse,
+                       int B, int H, int Tq, int Tk, const long long* qs,
+                       const long long* ks, const long long* vs, float scale,
+                       int causal, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks, vs,
-                           scale, causal, stream);
+      return launch<T, 16>(dtype, q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks,
+                           vs, scale, causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks, vs,
-                           scale, causal, stream);
+      return launch<T, 32>(dtype, q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks,
+                           vs, scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks, vs,
-                           scale, causal, stream);
+      return launch<T, 64>(dtype, q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks,
+                           vs, scale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks, vs,
-                            scale, causal, stream);
+      return launch<T, 128>(dtype, q, k, v, kv_mask, o, lse, B, H, Tq, Tk, qs, ks,
+                            vs, scale, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -307,9 +384,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // C interface (loaded with ctypes).  dtype: 0 = bf16, 1 = f16.
-// *_strides: {batch, sequence, head} strides of q/k/v in elements (the
-// last dim is contiguous).  kv_mask: [B, Tk] bytes, 0 = masked, or NULL.
-// Launches on `stream` and returns the cudaError_t of the launch.
+// *_strides: {batch, sequence, head} strides of q/k/v in elements
+// (multiples of 8; the last dim is contiguous, the base 16-byte
+// aligned).  kv_mask: [B, Tk] bytes, 0 = masked, or NULL.  Encodes the
+// TMA maps, launches on `stream` and returns the first cudaError_t.
 extern "C" int edl_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, const void* kv_mask, void* o,
                              float* lse, int B, int H, int Tq, int Tk, int D,
@@ -319,14 +397,14 @@ extern "C" int edl_flash_fwd(int dtype, const void* q, const void* k,
                              int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, kv_mask, o, lse, B, H,
-                                          Tq, Tk, q_strides, k_strides,
-                                          v_strides, scale, causal, st);
+    return (int)dispatch_d<__nv_bfloat16>(dtype, D, q, k, v, kv_mask, o, lse, B, H,
+                                          Tq, Tk, q_strides, k_strides, v_strides,
+                                          scale, causal, st);
   }
   if (dtype == 1) {
-    return (int)dispatch_d<__half>(D, q, k, v, kv_mask, o, lse, B, H, Tq, Tk,
-                                   q_strides, k_strides, v_strides, scale,
-                                   causal, st);
+    return (int)dispatch_d<__half>(dtype, D, q, k, v, kv_mask, o, lse, B, H, Tq, Tk,
+                                   q_strides, k_strides, v_strides, scale, causal,
+                                   st);
   }
   return (int)cudaErrorInvalidValue;
 }

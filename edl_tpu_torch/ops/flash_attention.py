@@ -59,10 +59,10 @@ _STREAMK_MAX_BLOCK_K = 16384
 #: taken (a prime T would give 1-key slots); see ``streamk_slot_width``
 _STREAMK_MIN_DIVISOR_SLOT = 512
 #: query chunks per (batch*head, slot) of the streaming-K kernel: its
-#: blocks, and its dK/dV partials per key.  16 at T=32768: 864 blocks,
-#: 4.03 GB of partials; 8 chunks (432 blocks, 2.42 GB) ran slower on
-#: the H100 (PERF.md section 6)
-_STREAMK_Q_CHUNKS = 16
+#: blocks, and its dK/dV partials per key.  8 at T=32768: 432 blocks,
+#: 2.42 GB of partials; 16 chunks (864 blocks, 4.03 GB) and 32 were no
+#: faster for the wgmma kernel on the H100 (PERF.md section 6)
+_STREAMK_Q_CHUNKS = 8
 
 _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -435,6 +435,33 @@ def streamk_chunk_rows(tq: int) -> int:
     return 64 * max(1, -(-tq // (64 * _STREAMK_Q_CHUNKS)))
 
 
+def streamk_geometry(b: int, h: int, tq: int, tk: int, d: int, slot_w: int,
+                     causal: bool) -> Dict[str, int]:
+    """The streaming-K kernel's work split and workspace, as
+    ``csrc/flash_bwd_streamk.cu`` lays them out (its ``live_slots``):
+
+    - ``chunk_rows``, ``n_slots``, ``n_chunks``, ``tq_pad``;
+    - ``live_pairs``: the (slot, Q chunk) blocks of one batch*head that
+      the causal mask leaves live, and ``blocks`` of the launch;
+    - ``dq_partial_bytes``, ``dkv_partial_bytes`` (dK and dV together)
+      and ``delta_bytes``: the float32 workspace the wrapper allocates."""
+    chunk_rows = streamk_chunk_rows(tq)
+    n_slots, n_chunks = -(-tk // slot_w), -(-tq // chunk_rows)
+    live_pairs = sum(
+        min((min((c + 1) * chunk_rows, tq) - 1) // slot_w + 1, n_slots)
+        if causal else n_slots
+        for c in range(n_chunks))
+    tq_pad = -(-tq // 64) * 64
+    return {
+        "chunk_rows": chunk_rows, "n_slots": n_slots, "n_chunks": n_chunks,
+        "tq_pad": tq_pad,
+        "live_pairs": live_pairs, "blocks": b * h * live_pairs,
+        "dq_partial_bytes": b * h * n_slots * tq_pad * d * 4,
+        "dkv_partial_bytes": 2 * b * h * n_chunks * tk * d * 4,
+        "delta_bytes": b * h * tq * 4,
+    }
+
+
 def flash_bwd_streamk_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -463,16 +490,15 @@ def flash_bwd_streamk_cuda(
     if not 1 <= slot_w <= max(tk, 1):
         raise ValueError(f"slot width {slot_w} must be in [1, Tk={tk}]")
     mask_ptr = _mask_ptr(kv_mask, b, tk, q)
-    chunk_rows = streamk_chunk_rows(tq)
-    n_slots = -(-tk // slot_w)
-    n_chunks = -(-tq // chunk_rows)
-    tq_pad = -(-tq // 64) * 64
+    geo = streamk_geometry(b, h, tq, tk, d, slot_w, causal)
+    if geo["live_pairs"] > _MAX_BLOCKS_Y:
+        raise ValueError(f"{geo['live_pairs']} (slot, Q chunk) pairs exceed {_MAX_BLOCKS_Y}")
     fn = _build.entry("flash_bwd_streamk", "edl_flash_bwd_streamk", _STREAMK_ARGS)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, tq), **f32)
-    dqp = torch.empty((b * h, n_slots, tq_pad, d), **f32)
-    dkp = torch.empty((b * h, n_chunks, tk, d), **f32)
-    dvp = torch.empty((b * h, n_chunks, tk, d), **f32)
+    dqp = torch.empty((b * h, geo["n_slots"], geo["tq_pad"], d), **f32)
+    dkp = torch.empty((b * h, geo["n_chunks"], tk, d), **f32)
+    dvp = torch.empty((b * h, geo["n_chunks"], tk, d), **f32)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
@@ -487,7 +513,7 @@ def flash_bwd_streamk_cuda(
             None if g_lse is None else g_lse.data_ptr(), mask_ptr,
             delta.data_ptr(), dqp.data_ptr(), dkp.data_ptr(), dvp.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, tq, tk, d, int(slot_w), chunk_rows, *strides,
+            b, h, tq, tk, d, int(slot_w), geo["chunk_rows"], *strides,
             float(scale), int(bool(causal)), stream,
         )
     if err != 0:
@@ -596,5 +622,6 @@ __all__ = [
     "flash_fwd_cuda",
     "merged_bwd_fits",
     "reset_launch_counts",
+    "streamk_geometry",
     "streamk_slot_width",
 ]

@@ -267,3 +267,107 @@ def test_fused_vocab_xent_on_the_card_matches_the_cpu_path(cuda):
     assert abs(out["cuda"][1].item() - out["cpu"][1].item()) <= 1.0 / 120
     for g, w in zip(out["cuda"][2:], out["cpu"][2:]):
         _close_to_scale(g, w, GRAD_TOL)
+
+
+# -- the wgmma/TMA kernels' tile edges (192-row Q tiles at D <= 64 and
+# 128-key K/V tiles of B1; 128-key tiles and 64-row Q tiles of B3) --------------------
+
+#: a kernel whose mbarrier pipeline hangs would stall the run; past this
+#: many seconds a test ends the process with a traceback instead (the
+#: kernels' own barrier watchdog traps after 10 s)
+CARD_TEST_SECONDS = 300
+
+
+@pytest.fixture
+def watchdog():
+    import faulthandler
+
+    faulthandler.dump_traceback_later(CARD_TEST_SECONDS, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
+def _fwd_twice_against_plain(q, k, v, causal, mask=None):
+    scale = q.shape[-1] ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    o2, lse2 = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # no atomics
+    po, plse = flash_attention_plain(q, k, v, causal, scale, mask)
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-4)
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [127, 128, 129, 130, 191, 192, 193])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_ragged_tile_edges(cuda, watchdog, T, causal):
+    """Ragged 128-key K/V tiles and ragged Q tiles (192 rows at D = 64:
+    TMA's zero fill past the end, masked keys, rows not written), two
+    runs bit-identical."""
+    q, k, v = (_rand(cuda, (2, T, 3, 64), torch.bfloat16) for _ in range(3))
+    _fwd_twice_against_plain(q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tk", [1, 50, 127])
+def test_flash_fwd_keys_shorter_than_one_tile(cuda, watchdog, Tk):
+    """Not causal, Tq != Tk, every key in one ragged K/V tile."""
+    q = _rand(cuda, (2, 300, 2, 64), torch.bfloat16)
+    k, v = (_rand(cuda, (2, Tk, 2, 64), torch.bfloat16) for _ in range(2))
+    _fwd_twice_against_plain(q, k, v, False)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_head_dim_128_at_4096(cuda, watchdog):
+    """D = 128: two 64-column panels per tile (two TMA boxes per row)."""
+    q, k, v = (_rand(cuda, (1, 4096, 2, 128), torch.bfloat16) for _ in range(3))
+    _fwd_twice_against_plain(q, k, v, True)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_f16_head_dim_32(cuda, watchdog):
+    """f16 with 64-byte rows (the 64-byte swizzle), a key mask with a
+    fully masked batch row."""
+    q, k, v = (_rand(cuda, (2, 1000, 3, 32), torch.float16) for _ in range(3))
+    mask = torch.rand((2, 1000), generator=cuda, device="cuda") > 0.3
+    mask[-1] = False
+    o, _ = _fwd_twice_against_plain(q, k, v, False, mask)
+    assert o[-1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,D,causal,slot_w,masked",
+    [
+        (1, 700, 2, 64, True, 200, False),
+        (2, 512, 2, 64, False, 130, True),
+        (1, 1000, 3, 64, True, 333, True),
+        (2, 600, 2, 32, True, 257, False),
+    ],
+)
+def test_flash_bwd_streamk_slots_off_the_key_tile(cuda, watchdog, B, T, H, D, causal,
+                                                  slot_w, masked):
+    """B3 with slot widths that are not a multiple of its 128-key tile
+    (a key tile crosses into the next slot and is masked there), a key
+    mask with a fully masked batch row, two runs bit-identical."""
+    q, k, v, do = (_rand(cuda, (B, T, H, D), torch.bfloat16) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.rand((B, T), generator=cuda, device="cuda") > 0.3
+        mask[-1] = False
+    g_lse = _rand(cuda, (B, H, T), torch.float32)
+    scale = D ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    args = (q, k, v, o, lse, do, g_lse, mask, causal, scale, slot_w)
+    got = flash_bwd_streamk_cuda(*args)
+    again = flash_bwd_streamk_cuda(*args)
+    torch.cuda.synchronize()
+    want = flash_bwd_streamk_plain(*args)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close_to_scale(g, w, GRAD_TOL)
+    if masked:
+        for g in got:
+            assert g[-1].abs().max().item() == 0.0

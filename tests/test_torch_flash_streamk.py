@@ -20,6 +20,8 @@ The CUDA kernel itself is held against the plain version on the card
 
 import dataclasses
 import importlib
+import shutil
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -319,6 +321,98 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
     assert after["alone"] == before["alone"]
     assert after["direct"] != before["direct"]
     assert after["nested"] != before["nested"]
+
+    # the repo's own sources: the Hopper header (TMA, mbarrier, wgmma)
+    # reaches B1 and B3 and no other kernel
+    csrc = tmp_path / "csrc"
+    shutil.copytree(Path(pfa.__file__).parent / "csrc", csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.KERNELS}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in _build.KERNELS}
+    assert {n for n in _build.KERNELS if after[n] != before[n]} == {
+        "flash_fwd", "flash_bwd_streamk"}
+    # and the delta pass's header reaches both backwards and nothing else
+    with open(csrc / "flash_bwd_delta.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {n: _build.library_path(n) for n in _build.KERNELS}
+    assert {n for n in _build.KERNELS if again[n] != after[n]} == {
+        "flash_bwd", "flash_bwd_streamk"}
+
+
+def test_redesigned_kernels_are_wgmma_and_tma_only():
+    """B1 and B3 are built from wgmma and TMA (``hopper.cuh``); no WMMA
+    tile and no old tile header is left in either source, and neither
+    uses float atomics."""
+    csrc = Path(pfa.__file__).parent / "csrc"
+    for name in ("flash_fwd.cu", "flash_bwd_streamk.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "hopper.cuh"' in text
+        assert "wmma::" not in text and "<mma.h>" not in text
+        assert "flash_bwd_tiles.cuh" not in text
+        assert "atomicAdd" not in text and "red.global" not in text
+        assert "wgmma_ss<" in text and "tma_load_4d(" in text
+    header = (csrc / "hopper.cuh").read_text()
+    assert "cudaGetDriverEntryPoint" in header and "cp.async.bulk.tensor.4d" in header
+
+
+def _streamk_dq_partial_traffic(geo, t, slot_w, d, causal):
+    """The live (128-key tile, 64-row Q tile) pairs of a square
+    streaming-K launch for one batch*head, and the bytes of dQ partial
+    rows they move: each reads and writes 64 x D f32 rows, the first key
+    tile of a slot only writes them."""
+    rows = geo["chunk_rows"]
+    pairs = writes_only = 0
+    for c in range(geo["n_chunks"]):
+        q_first, q_end = c * rows // 64, -(-min((c + 1) * rows, t) // 64)
+        for j in range(geo["n_slots"]):
+            if causal and j * slot_w > min((c + 1) * rows, t) - 1:
+                continue
+            for k0 in range(j * slot_w, min((j + 1) * slot_w, t), 128):
+                n = max(0, q_end - (max(q_first, k0 // 64) if causal else q_first))
+                pairs += n
+                writes_only += n if k0 == j * slot_w else 0
+    return pairs, (2 * pairs - writes_only) * 64 * d * 4
+
+
+def test_streamk_geometry_at_the_long_context_shape():
+    """The B3 wrapper's host-side geometry at [1, 32768, 12, 64] causal
+    with the default 4096-key slots: the numbers the kernel's source note
+    states (blocks, workspace, live tile pairs and their dQ partial
+    traffic)."""
+    assert pfa.streamk_slot_width(32768) == 4096
+    geo = pfa.streamk_geometry(1, 12, 32768, 32768, 64, 4096, True)
+    assert geo == {
+        "chunk_rows": 4096, "n_slots": 8, "n_chunks": 8, "tq_pad": 32768,
+        "live_pairs": 36, "blocks": 432,
+        "dq_partial_bytes": 805_306_368, "dkv_partial_bytes": 1_610_612_736,
+        "delta_bytes": 1_572_864,
+    }
+    # the workspace stays under the first version's 4.03 GB
+    assert geo["dq_partial_bytes"] + geo["dkv_partial_bytes"] + geo["delta_bytes"] < 4.03e9
+    pairs, traffic = _streamk_dq_partial_traffic(geo, 32768, 4096, 64, True)
+    assert 12 * pairs == 789_504 and 12 * traffic == 25_417_482_240
+
+
+@pytest.mark.parametrize("t,slot,causal", [(300, 100, False), (300, 100, True), (130, 48, True)])
+def test_streamk_geometry_counts_the_live_blocks(t, slot, causal):
+    """Live (slot, Q chunk) blocks and workspace against a brute-force
+    walk of every (query row, key) pair: a block is live when one of its
+    rows may attend one of its keys."""
+    geo = pfa.streamk_geometry(2, 3, t, t, 16, slot, causal)
+    rows = geo["chunk_rows"]
+    live = sum(
+        any(not causal or k <= q
+            for q in range(c * rows, min((c + 1) * rows, t))
+            for k in range(j * slot, min((j + 1) * slot, t)))
+        for c in range(geo["n_chunks"]) for j in range(geo["n_slots"]))
+    assert geo["n_slots"] * slot >= t > (geo["n_slots"] - 1) * slot
+    assert geo["n_chunks"] * rows >= t > (geo["n_chunks"] - 1) * rows
+    assert geo["live_pairs"] == live and geo["blocks"] == 6 * live
+    assert geo["dq_partial_bytes"] == 6 * geo["n_slots"] * geo["tq_pad"] * 16 * 4
+    assert geo["dkv_partial_bytes"] == 2 * 6 * geo["n_chunks"] * t * 16 * 4
+    assert geo["delta_bytes"] == 6 * t * 4
 
 
 def test_chip_smoke_row_check_follows_each_rows_scale():
