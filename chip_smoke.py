@@ -31,8 +31,12 @@ non-zero on the first failure.  Phases, in order:
    tile, each run twice for bit identity, and at [1, 32768, 12, 64]
    against its plain version head by head, beside B2 forced on the same
    inputs), B4-B6 fused tied-vocab cross entropy (also at the
-   long-context path's N = 32768).  B1 and B3 at [1, 32768, 12, 64]
-   must not be slower than their first versions (FIRST_VERSION_MS).
+   long-context path's N = 32768; dE also row by row, with planted
+   faults the row check must reject).  B2 and B6 run twice for bit
+   identity; B3 is timed forced on B2's inputs and B6 also at N = 32768.
+   B1 and B3 at [1, 32768, 12, 64], B2 at [8, 2048, 12, 64] and B6 at
+   N = 16384 must not be slower than their first versions
+   (FIRST_VERSION_MS).
 4. **Serving** — full-width ``transformer_lm`` (seeded random weights)
    behind ``DecodeEngine`` + ``TokenContinuousBatcher`` (monolithic
    prefill) + ``ServingServer`` on loopback; four concurrent
@@ -59,8 +63,9 @@ non-zero on the first failure.  Phases, in order:
    path's step-0 loss and gradients are held against the plain path's
    (the plain path cannot run at T=32768).
 7. **Kernels line** — one JSON object listing every ported kernel with
-   its launches on the main path, error, times and bound (for B1 and B3
-   also the achieved TFLOP/s and the share of the bound).
+   its launches on the main path, error, times and bound (for the
+   redesigned B1, B2, B3 and B6 also the shape, the achieved TFLOP/s and
+   the share of the bound).
 8. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
@@ -142,10 +147,12 @@ LONG_STEPS = 3
 LONG_PARITY_T = 2048
 LONG_PARITY_SLOT = 256
 
-#: the first (WMMA) versions of B1 and B3 at [1, 32768, 12, 64] on the
-#: H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): the wgmma/TMA
-#: kernels that replaced them must not be slower
-FIRST_VERSION_MS = {"flash_fwd": 27.47, "flash_bwd_streamk": 66.53}
+#: the first (WMMA) versions' times on the H100 (NVIDIA H100 80GB HBM3,
+#: 700 W; PERF.md section 6): B1 and B3 at [1, 32768, 12, 64], B2 at
+#: [8, 2048, 12, 64] causal, B6 at N=16384, V=32000, D=768.  The
+#: wgmma/TMA kernels that replaced them must not be slower
+FIRST_VERSION_MS = {"flash_fwd": 27.47, "flash_bwd_streamk": 66.53,
+                    "flash_bwd": 2.989, "xent_de": 22.31}
 
 
 def fail(msg: str) -> None:
@@ -424,13 +431,17 @@ def _bwd_case(g, b, t, h, d, causal, mask_kind=None, with_glse=False):
     scale = d ** -0.5
     o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
     got = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    again = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale)
     torch.cuda.synchronize()
+    where = f"{b=} {t=} {causal=} {mask_kind=} {with_glse=}"
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"two flash_bwd runs differ at {where}")
+    del again
     want = flash_bwd_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale)
     torch.cuda.synchronize()
-    errs = _grad_errors("flash_bwd", got, want, mask_kind,
-                        f"{b=} {t=} {causal=} {mask_kind=} {with_glse=}")
+    errs = _grad_errors("flash_bwd", got, want, mask_kind, where)
     return {"B": b, "T": t, "H": h, "D": d, "causal": causal, "mask": mask_kind,
-            "g_lse": with_glse, "tolerance_of_scale": GRAD_TOL,
+            "g_lse": with_glse, "bit_identical_twice": True, "tolerance_of_scale": GRAD_TOL,
             "max_abs_err": max(e[0] for e in errs.values()),
             "err_of_scale": {k: e[1] for k, e in errs.items()},
             "row_tolerance": ROW_TOL, "row_err": {k: e[2] for k, e in errs.items()}}
@@ -449,7 +460,13 @@ def phase_flash_bwd():
     import torch
     import torch.nn.functional as F
 
-    from edl_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_bwd_plain, flash_fwd_cuda
+    from edl_tpu_torch.ops.flash_attention import (
+        flash_bwd_cuda,
+        flash_bwd_plain,
+        flash_bwd_streamk_cuda,
+        flash_fwd_cuda,
+        streamk_slot_width,
+    )
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 1)
@@ -487,13 +504,30 @@ def phase_flash_bwd():
     with torch.no_grad():
         fwd_ms = cuda_ms(sdpa_fwd, iters=20)
     library_ms = cuda_ms(sdpa_fwd_bwd, iters=20) - fwd_ms
+    # the streaming-K backward (B3) forced on the same inputs, one slot of
+    # all 2048 keys: the yardstick of existing wgmma code
+    args = (q, k, v, o, lse, do, None, None, True, scale)
+    width = streamk_slot_width(t)
+    got = flash_bwd_cuda(*args)
+    streamk = flash_bwd_streamk_cuda(*args, width)
+    torch.cuda.synchronize()
+    vs_streamk = {n: _rel_err(x, w) for n, x, w in zip(("dq", "dk", "dv"), got, streamk)}
+    rows_streamk = {n: _row_err(x, w) for n, x, w in zip(("dq", "dk", "dv"), got, streamk)}
+    if max(vs_streamk.values()) > GRAD_TOL or max(rows_streamk.values()) > ROW_TOL:
+        fail(f"B2 and B3 forced disagree at {[b, t, h, d]}: {vs_streamk} of scale, "
+             f"{rows_streamk} of a row (tolerance {ROW_TOL})")
+    del got, streamk
+    streamk_ms = cuda_ms(lambda: flash_bwd_streamk_cuda(*args, width), iters=20)
     bound_ms, bound_by, flops, nbytes = flash_bwd_bound_ms(b, t, h, d, True)
     timing = {
         "name": "flash_bwd", "shape": [b, t, h, d], "causal": True,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+        "streamk_b3_forced_ms": streamk_ms, "streamk_slot_w": width,
+        "b2_vs_b3_forced_err_of_scale": vs_streamk, "b2_vs_b3_forced_row_err": rows_streamk,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "b3_forced_tflops": flops / (streamk_ms * 1e-3) / 1e12,
     }
     log({"kernel_timing": timing})
     return {"cases": cases, "timing": timing,
@@ -762,8 +796,12 @@ def xent_bound_ms(n, v, d, mode) -> tuple:
     return _bound(flops, nbytes)
 
 
-def _xent_case(g, n, v, d, pad_rows=0):
-    """B4, B5 and B6 against their plain versions on one input."""
+def _xent_case(g, n, v, d, pad_rows=0, plant=False):
+    """B4, B5 and B6 against their plain versions on one input; dE also
+    row by row (each vocab row against its own norm) and run twice for
+    bit identity.  With ``plant``, faults that the dE row check must
+    reject: the last 64 Y rows dropped (their row_scale 0) and one
+    64-row vocab tile past the first zeroed."""
     import torch
 
     from edl_tpu_torch.ops import fused_xent as fx
@@ -796,6 +834,28 @@ def _xent_case(g, n, v, d, pad_rows=0):
             fail("xent_dy: rows with valid 0 have a gradient")
         out[mode] = {"max_abs_err": _max_abs(x, w), "err_of_scale": rel,
                      "tolerance_of_scale": GRAD_TOL}
+        if mode == "xent_de":
+            again = kern(y, e, labels, lse, row_scale)
+            torch.cuda.synchronize()
+            if not torch.equal(x, again):
+                fail(f"two xent_de runs differ at {n=} {v=}")
+            del again
+            rows = _row_err(x, w)
+            if rows > ROW_TOL:
+                fail(f"xent_de disagrees with its plain version at {n=} {v=}: row error "
+                     f"{rows} (tolerance {ROW_TOL})")
+            out[mode].update({"bit_identical_twice": True, "row_err": rows,
+                              "row_tolerance": ROW_TOL})
+            if plant:
+                late = row_scale.clone()
+                late[n - 64:] = 0
+                tile = w.clone()
+                tile[64:128] = 0
+                out[mode]["planted_faults"] = _check_rejects("xent_de", {
+                    "the last 64 Y rows dropped": [plain(y, e, labels, lse, late)],
+                    "vocab rows 64-127 zeroed": [tile],
+                }, [w])
+                del late, tile
         del x, w
     return out
 
@@ -810,7 +870,7 @@ def phase_xent():
     n, v, d = TRAIN_BATCH * 2048, 32000, 768
     # the training path's shape, an odd N and V with padding rows, and
     # the long-context path's N = 1 x 32768
-    cases = [_xent_case(g, n, v, d), _xent_case(g, 300, 32001, d, pad_rows=20),
+    cases = [_xent_case(g, n, v, d, plant=True), _xent_case(g, 300, 32001, d, pad_rows=20),
              _xent_case(g, LONG_BATCH * LONG_T, v, d)]
     for c in cases:
         log({"xent_check": c})
@@ -842,6 +902,23 @@ def phase_xent():
             "tflops": flops / (kernel_ms * 1e-3) / 1e12,
         }
         log({"kernel_timing": timings[mode]})
+    # B6 at the long-context path's N = 32768 (Y is 50 MB, the size of L2)
+    del y, labels, row_scale, lse
+    torch.cuda.empty_cache()
+    n_long = LONG_BATCH * LONG_T
+    y, _, labels, row_scale = _xent_inputs(g, n_long, v, d)
+    lse = fx.xent_fwd_cuda(y, e, labels)[0]
+    long_ms = cuda_ms(lambda: fx.xent_de_cuda(y, e, labels, lse, row_scale), iters=5, warmup=1)
+    long_gemm_ms = cuda_ms(lambda: torch.matmul(y, e.t()), iters=10)
+    bound_ms, bound_by, flops, nbytes = xent_bound_ms(n_long, v, d, "xent_de")
+    timings["xent_de"]["long"] = {
+        "shape": {"N": n_long, "V": v, "D": d}, "kernel_ms": long_ms,
+        "gemm_ms": long_gemm_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "tflops": flops / (long_ms * 1e-3) / 1e12, "bound_share": bound_ms / long_ms,
+    }
+    log({"kernel_timing": {"name": "xent_de", **timings["xent_de"]["long"]}})
+    del y, labels, row_scale, lse
+    torch.cuda.empty_cache()
     errs = {mode: max(c[mode]["max_abs_err"] for c in cases) for mode in runs}
     return {"cases": cases, "timing": timings, "max_abs_err": errs}
 
@@ -849,18 +926,23 @@ def phase_xent():
 # -- phase 3b -------------------------------------------------------------
 
 
-def phase_speed_guard(long_kernels) -> dict:
-    """B1 and B3 at the long-context shape against their first versions'
-    times (FIRST_VERSION_MS): a slower kernel fails the run."""
-    got = {"flash_fwd": long_kernels["fwd_timing"]["kernel_ms"],
-           "flash_bwd_streamk": long_kernels["timing"]["kernel_ms"]}
-    result = {name: {"ms": got[name], "first_version_ms": FIRST_VERSION_MS[name],
-                     "speedup": FIRST_VERSION_MS[name] / got[name]} for name in got}
+def phase_speed_guard(kernels, xent) -> dict:
+    """The redesigned kernels against their first versions' times
+    (FIRST_VERSION_MS) at the same shapes: B1 and B3 at the long-context
+    shape, B2 at the training shape, B6 at N=16384.  A slower kernel
+    fails the run."""
+    long_kernels = kernels["flash_bwd_streamk"]
+    timed = {"flash_fwd": long_kernels["fwd_timing"], "flash_bwd_streamk": long_kernels["timing"],
+             "flash_bwd": kernels["flash_bwd"]["timing"], "xent_de": xent["timing"]["xent_de"]}
+    result = {name: {"ms": t["kernel_ms"], "shape": t["shape"],
+                     "first_version_ms": FIRST_VERSION_MS[name],
+                     "speedup": FIRST_VERSION_MS[name] / t["kernel_ms"]}
+              for name, t in timed.items()}
     log({"speed_guard": result})
     for name, r in result.items():
         if r["ms"] > r["first_version_ms"]:
-            fail(f"{name} at [{LONG_BATCH}, {LONG_T}, 12, 64] took {r['ms']} ms, slower "
-                 f"than its first version's {r['first_version_ms']} ms")
+            fail(f"{name} at {r['shape']} took {r['ms']} ms, slower than its first "
+                 f"version's {r['first_version_ms']} ms")
     return result
 
 
@@ -1285,8 +1367,8 @@ def main() -> int:
     phase_build()
     kernels = {"flash_fwd": phase_kernels(), "flash_bwd": phase_flash_bwd(),
                "flash_bwd_streamk": phase_long_kernels()}
-    phase_speed_guard(kernels["flash_bwd_streamk"])
     xent = phase_xent()
+    phase_speed_guard(kernels, xent)
     serving = phase_serving()
     training = phase_training()
     long_training = phase_longcontext_training()
@@ -1305,7 +1387,7 @@ def main() -> int:
                               "edl_tpu/ops/flash_attention.py:495"),
         "xent_fwd": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:54"),
         "xent_dy": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:151"),
-        "xent_de": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:188"),
+        "xent_de": ("edl_tpu_torch/ops/csrc/xent_de.cu", "edl_tpu/ops/fused_xent.py:188"),
     }
     line = {"kernels": [{
         "name": name,
@@ -1322,7 +1404,7 @@ def main() -> int:
         # the redesigned kernels: achieved rate and share of the bound
         **({"shape": timings[name]["shape"], "tflops": timings[name]["tflops"],
             "bound_share": timings[name]["bound_ms"] / timings[name]["kernel_ms"]}
-           if name in ("flash_fwd", "flash_bwd_streamk") else {}),
+           if name in ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_de") else {}),
     } for name, (source, replaces) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

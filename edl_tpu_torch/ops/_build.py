@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface (the
-backward kernels share the tile helpers of ``csrc/*.cuh``).  At first
+kernels share the helpers of ``csrc/*.cuh``).  At first
 use ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library
 under ``build/kernels/`` at the repository root (git-ignored), and
 ``ctypes`` loads it.  The library's file name carries a hash of the
@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "fused_xent")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "fused_xent", "xent_de")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,6 +1,7 @@
 // Fused tied-vocab softmax cross entropy for Hopper (sm_90a): the loss
-// statistics and both gradients of softmax(Y E^T) without the [N, V]
-// logits ever reaching device memory.
+// statistics and the features' gradient of softmax(Y E^T) without the
+// [N, V] logits ever reaching device memory.  (The embedding's gradient,
+// the TPU kernel _de_kernel, is xent_de.cu.)
 //
 // Replaces the TPU kernels of edl_tpu/ops/fused_xent.py:
 //
@@ -9,8 +10,6 @@
 //   vocab tiles;
 // - mode 1, _dy_kernel (in _bwd): dY = dL E with the logits recomputed
 //   per vocab tile;
-// - mode 2, _de_kernel (in _bwd): dE = dL^T Y, vocab tile outer,
-//   f32, only the first V rows written;
 //
 // where dL = ((softmax - onehot) * row_scale) cast to bf16, as the TPU
 // kernels' `dl.astype(bf16)`.  Y [N, D] and E [V, D] are bf16, the
@@ -19,32 +18,28 @@
 //
 // The TPU tiles (up to 1024 x 1024, each with a [rows, D] f32
 // accumulator in VMEM) do not fit a Hopper block: at D=768 a 64-row f32
-// accumulator alone is 192 KB.  So one kernel template serves all
-// three modes with a 32-row "outer" tile, resident in shared memory for
-// the whole block, and a 64-row "inner" tile streamed through it:
-//
-// - modes 0 and 1: one block (8 warps) per 32 rows of Y, sweeping the
-//   vocab in 64-row tiles of E;
-// - mode 2: one block per 32 rows of E, sweeping all of Y in 64-row
-//   tiles, in order.
+// accumulator alone is 192 KB.  So one kernel template serves both
+// modes with a 32-row "outer" tile of Y, resident in shared memory for
+// the whole block (8 warps), and a 64-row "inner" tile of E streamed
+// through it, sweeping the vocab.
 //
 // Each step computes the [32, 64] logit tile with WMMA 16x16x16 (bf16
 // in, f32 out) into shared memory; mode 0 folds it into each row's
-// running max and sum (8 lanes per row, in registers); modes 1 and 2
-// write dL for the tile as bf16 and add dL [32, 64] x inner [64, D] to
-// the block's [32, D] f32 result, held as WMMA accumulators in
-// registers (D/64 fragments per warp) and written once at the end.
+// running max and sum (8 lanes per row, in registers); mode 1 writes dL
+// for the tile as bf16 and adds dL [32, 64] x inner [64, D] to the
+// block's [32, D] f32 result, held as WMMA accumulators in registers
+// (D/64 fragments per warp) and written once at the end.
 // Every output element has one owner and a fixed order of summation:
 // no atomics, and the result is bit-identical run to run.
 //
 // Bound on the H100 at the training shape (N=16384, V=32000, D=768):
 // the logits are 2*N*V*D = 8.05e11 FLOP (0.81 ms at 989 TFLOP/s dense
 // bf16) for mode 0 and twice that, with the recomputed logits, for
-// modes 1 and 2 (1.63 ms each); the bytes (Y and E, 74 MB) take 0.02
-// ms — compute-bound.  This first version streams the inner tile with
+// mode 1 (1.63 ms); the bytes (Y and E, 74 MB) take 0.02 ms —
+// compute-bound.  This first version streams the inner tile with
 // synchronous loads (no TMA, no double buffering), so each block reads
-// all of the other operand once from L2 (about 25 GB in all per mode)
-// and runs well above its bound; its measured time is in PERF.md.
+// all of E once from L2 (about 25 GB in all per mode) and runs well
+// above its bound; its measured time is in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +60,7 @@ constexpr int LANES_PER_ROW = NTHREADS / BO;  // 8 lanes own one outer row
 constexpr int COLS_PER_LANE = BI / LANES_PER_ROW;
 constexpr float NEG_INF = -1e30f;
 
-enum Mode { FWD = 0, DY = 1, DE = 2 };
+enum Mode { FWD = 0, DY = 1 };
 
 __device__ __forceinline__ float safe_max(float m) {
   return m <= NEG_INF * 0.5f ? 0.f : m;
@@ -86,8 +81,8 @@ struct Smem {
   static constexpr size_t s_off = inner_off + size_t(BI) * LDT * 2;
   static constexpr size_t dl_off = s_off + size_t(BO) * LDS * 4;
   static constexpr size_t stat_off = dl_off + size_t(BO) * LDL * 2;
-  // per-row lse, row_scale and label of the outer (32) and inner (64) rows
-  static constexpr size_t total = stat_off + size_t(3) * (BO + BI) * 4;
+  // per-row lse, row_scale and label of the outer (32) rows
+  static constexpr size_t total = stat_off + size_t(3) * BO * 4;
   static_assert(size_t(BO) * LDA * 4 <= size_t(BI) * LDT * 2,
                 "result staging must fit in the inner tile");
 };
@@ -132,8 +127,7 @@ xent_kernel(const bf16* __restrict__ y, const bf16* __restrict__ e,
             const int* __restrict__ labels, const float* __restrict__ lse,
             const float* __restrict__ row_scale, int N, int V,
             float* __restrict__ out_lse, float* __restrict__ out_label,
-            float* __restrict__ out_max, bf16* __restrict__ dy,
-            float* __restrict__ de) {
+            float* __restrict__ out_max, bf16* __restrict__ dy) {
   using S = Smem<D>;
   using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   // result fragments per warp: [BO, D] in 16x16 fragments over 8 warps
@@ -149,20 +143,13 @@ xent_kernel(const bf16* __restrict__ y, const bf16* __restrict__ e,
   float* sOutLse = reinterpret_cast<float*>(smem + S::stat_off);
   float* sOutScale = sOutLse + BO;
   int* sOutLab = reinterpret_cast<int*>(sOutScale + BO);
-  float* sInLse = reinterpret_cast<float*>(sOutLab + BO);
-  float* sInScale = sInLse + BI;
-  int* sInLab = reinterpret_cast<int*>(sInScale + BI);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  // rows of Y are outer in modes 0 and 1, rows of E in mode 2
-  const bf16* outer_src = MODE == DE ? e : y;
-  const bf16* inner_src = MODE == DE ? y : e;
-  const int n_outer = MODE == DE ? V : N;
-  const int n_inner = MODE == DE ? N : V;
+  // rows of Y are outer, rows of E inner
   const int o0 = blockIdx.x * BO;
 
-  load_rows<D>(sOut, outer_src, o0, n_outer, BO, tid);
+  load_rows<D>(sOut, y, o0, N, BO, tid);
   if (MODE == DY) {
     load_stats(sOutLse, sOutScale, sOutLab, lse, row_scale, labels, o0, N, BO,
                tid);
@@ -182,15 +169,11 @@ xent_kernel(const bf16* __restrict__ y, const bf16* __restrict__ e,
     for (int f = 0; f < FPW; ++f) wmma::fill_fragment(acc[f], 0.f);
   }
 
-  const int n_tiles = (n_inner + BI - 1) / BI;
+  const int n_tiles = (V + BI - 1) / BI;
   for (int it = 0; it < n_tiles; ++it) {
     const int i0 = it * BI;
     __syncthreads();  // every warp is done with the previous inner tile
-    load_rows<D>(sIn, inner_src, i0, n_inner, BI, tid);
-    if (MODE == DE) {
-      load_stats(sInLse, sInScale, sInLab, lse, row_scale, labels, i0, N, BI,
-                 tid);
-    }
+    load_rows<D>(sIn, e, i0, V, BI, tid);
     __syncthreads();
 
     // logits [BO, BI] = outer x inner^T: one 16x16 fragment per warp
@@ -250,11 +233,11 @@ xent_kernel(const bf16* __restrict__ y, const bf16* __restrict__ e,
       for (int j = 0; j < COLS_PER_LANE; ++j) {
         const int i = c0 + j;
         // (row of Y, vocab entry) of this logit
-        const int n = MODE == DY ? o0 + o : i0 + i;
-        const int v = MODE == DY ? i0 + i : o0 + o;
-        const float lse_n = MODE == DY ? sOutLse[o] : sInLse[i];
-        const float scale_n = MODE == DY ? sOutScale[o] : sInScale[i];
-        const int lab_n = MODE == DY ? sOutLab[o] : sInLab[i];
+        const int n = o0 + o;
+        const int v = i0 + i;
+        const float lse_n = sOutLse[o];
+        const float scale_n = sOutScale[o];
+        const int lab_n = sOutLab[o];
         float dl = 0.f;
         if (n < N && v < V) {
           const float p = expf(srow[j] - lse_n);
@@ -310,19 +293,13 @@ xent_kernel(const bf16* __restrict__ y, const bf16* __restrict__ e,
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * 8;
     const int row = o0 + r;
-    if (row >= n_outer) continue;
+    if (row >= N) continue;
     const float* src = staging + r * S::LDA + c;
-    if (MODE == DY) {
-      alignas(16) bf16 pack[8];
+    alignas(16) bf16 pack[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) pack[j] = __float2bfloat16(src[j]);
-      *reinterpret_cast<uint4*>(dy + (long long)row * D + c) =
-          *reinterpret_cast<const uint4*>(pack);
-    } else {
-      float4* dst = reinterpret_cast<float4*>(de + (long long)row * D + c);
-      dst[0] = make_float4(src[0], src[1], src[2], src[3]);
-      dst[1] = make_float4(src[4], src[5], src[6], src[7]);
-    }
+    for (int j = 0; j < 8; ++j) pack[j] = __float2bfloat16(src[j]);
+    *reinterpret_cast<uint4*>(dy + (long long)row * D + c) =
+        *reinterpret_cast<const uint4*>(pack);
   }
 }
 
@@ -330,18 +307,17 @@ template <int MODE, int D>
 cudaError_t launch(const void* y, const void* e, const int* labels,
                    const float* lse, const float* row_scale, int N, int V,
                    float* out_lse, float* out_label, float* out_max, void* dy,
-                   float* de, cudaStream_t stream) {
+                   cudaStream_t stream) {
   using S = Smem<D>;
   auto kern = xent_kernel<MODE, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
   if (err != cudaSuccess) return err;
-  const int n_outer = MODE == DE ? V : N;
-  const int blocks = (n_outer + BO - 1) / BO;
+  const int blocks = (N + BO - 1) / BO;
   if (blocks == 0) return cudaSuccess;
   kern<<<blocks, NTHREADS, S::total, stream>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(e), labels, lse,
-      row_scale, N, V, out_lse, out_label, out_max, static_cast<bf16*>(dy), de);
+      row_scale, N, V, out_lse, out_label, out_max, static_cast<bf16*>(dy));
   return cudaGetLastError();
 }
 
@@ -349,11 +325,11 @@ template <int MODE>
 cudaError_t dispatch_d(int D, const void* y, const void* e, const int* labels,
                        const float* lse, const float* row_scale, int N, int V,
                        float* out_lse, float* out_label, float* out_max,
-                       void* dy, float* de, cudaStream_t stream) {
+                       void* dy, cudaStream_t stream) {
 #define EDL_XENT_CASE(DD)                                                     \
   case DD:                                                                    \
     return launch<MODE, DD>(y, e, labels, lse, row_scale, N, V, out_lse,      \
-                            out_label, out_max, dy, de, stream);
+                            out_label, out_max, dy, stream);
   switch (D) {
     EDL_XENT_CASE(64)
     EDL_XENT_CASE(128)
@@ -378,7 +354,7 @@ extern "C" int edl_xent_fwd(const void* y, const void* e, const int* labels,
                             int N, int V, int D, float* out_lse,
                             float* out_label, float* out_max, void* stream) {
   return (int)dispatch_d<FWD>(D, y, e, labels, nullptr, nullptr, N, V, out_lse,
-                              out_label, out_max, nullptr, nullptr,
+                              out_label, out_max, nullptr,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -387,15 +363,6 @@ extern "C" int edl_xent_dy(const void* y, const void* e, const int* labels,
                            const float* lse, const float* row_scale, int N,
                            int V, int D, void* dy, void* stream) {
   return (int)dispatch_d<DY>(D, y, e, labels, lse, row_scale, N, V, nullptr,
-                             nullptr, nullptr, dy, nullptr,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// -> dE [V, D] f32
-extern "C" int edl_xent_de(const void* y, const void* e, const int* labels,
-                           const float* lse, const float* row_scale, int N,
-                           int V, int D, float* de, void* stream) {
-  return (int)dispatch_d<DE>(D, y, e, labels, lse, row_scale, N, V, nullptr,
-                             nullptr, nullptr, nullptr, de,
+                             nullptr, nullptr, dy,
                              static_cast<cudaStream_t>(stream));
 }

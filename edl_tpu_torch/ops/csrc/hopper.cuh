@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_fwd.cu, B1) and the streaming-K backward (flash_bwd_streamk.cu,
-// B3).  Each includes this header in its own translation unit; nothing
-// here has external linkage.
+// (flash_fwd.cu, B1), both flash-attention backwards (flash_bwd.cu, B2;
+// flash_bwd_streamk.cu, B3) and the cross entropy's embedding gradient
+// (xent_de.cu, B6).  Each includes this header in its own translation
+// unit; nothing here has external linkage.
 //
 // - mbarrier: init, arrive, arrive + expect-tx, wait on a phase parity
 //   (with a watchdog that traps instead of hanging forever);
@@ -17,7 +18,7 @@
 //   shared memory (wgmma_ss) or A in registers (wgmma_rs);
 // - fence.proxy.async, named barriers, setmaxnreg.
 //
-// Tile layout used by both kernels: an operand tile of R rows and D
+// Tile layout used by every kernel: an operand tile of R rows and D
 // columns (16-bit) is stored as D / PW column panels of PW = min(D, 64)
 // columns, each panel R rows of PW * 2 bytes (32, 64 or 128), swizzled
 // by TMA with the swizzle of that row length and 1024-byte aligned.  The

@@ -2,13 +2,15 @@
 ``edl_tpu/ops/fused_xent.py``).
 
 The loss of ``softmax(Y E^T)`` against labels, with the vocab
-projection's ``[N, V]`` logits never stored: three kernels of one
-source, ``csrc/fused_xent.cu``, built at first use (see ``_build``):
+projection's ``[N, V]`` logits never stored: three kernels, built at
+first use (see ``_build``):
 
 - ``xent_fwd_cuda`` (replaces the TPU kernel ``_fwd_kernel``): per row,
-  the logsumexp, the label's logit and the row max;
-- ``xent_dy_cuda`` (``_dy_kernel``): ``dY = dL E``;
-- ``xent_de_cuda`` (``_de_kernel``): ``dE = dL^T Y`` in float32;
+  the logsumexp, the label's logit and the row max
+  (``csrc/fused_xent.cu``);
+- ``xent_dy_cuda`` (``_dy_kernel``): ``dY = dL E`` (``csrc/fused_xent.cu``);
+- ``xent_de_cuda`` (``_de_kernel``): ``dE = dL^T Y`` in float32
+  (``csrc/xent_de.cu``, wgmma and TMA);
 
 with ``dL = ((softmax - onehot) * row_scale)`` cast to bf16.  Each has a
 plain PyTorch version (``xent_*_plain``) that the CPU runs and the card
@@ -47,6 +49,8 @@ _ARGS = {
     "xent_dy": [_PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _PTR],
 }
 _ARGS["xent_de"] = _ARGS["xent_dy"]
+#: the library (``csrc/<name>.cu``) of each kernel
+_LIBRARY = {"xent_fwd": "fused_xent", "xent_dy": "fused_xent", "xent_de": "xent_de"}
 
 
 def reset_launch_counts() -> None:
@@ -132,7 +136,7 @@ def _check(name: str, y, e, labels, stats=()) -> Tuple[int, int, int]:
 
 
 def _launch(name: str, *args) -> None:
-    fn = _build.entry("fused_xent", f"edl_{name}", _ARGS[name])
+    fn = _build.entry(_LIBRARY[name], f"edl_{name}", _ARGS[name])
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -166,6 +170,8 @@ def xent_dy_cuda(y, e, labels, lse, row_scale) -> torch.Tensor:
 def xent_de_cuda(y, e, labels, lse, row_scale) -> torch.Tensor:
     """Launch B6; returns ``dE`` ``[V, D]`` float32."""
     n, v, d = _check("xent_de", y, e, labels, (lse, row_scale))
+    if y.data_ptr() % 16 or e.data_ptr() % 16:
+        raise ValueError("xent_de: y and e must start 16-byte aligned (TMA)")
     de = torch.empty((v, d), dtype=torch.float32, device=y.device)
     _launch("xent_de", y, e, labels, lse, row_scale, n, v, d, de)
     return de

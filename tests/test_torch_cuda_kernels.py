@@ -371,3 +371,126 @@ def test_flash_bwd_streamk_slots_off_the_key_tile(cuda, watchdog, B, T, H, D, ca
     if masked:
         for g in got:
             assert g[-1].abs().max().item() == 0.0
+
+
+# -- the redesigned B2 (dK/dV kernel: 128-key tiles over 64-row Q tiles;
+# dQ kernel: 128-row Q tiles over 128-key tiles) and B6 (64 vocab rows
+# per block over 32-row Y tiles) -----------------------------------------
+
+
+def _bwd_twice_against_plain(q, k, v, causal, mask=None, with_glse=True, g=None):
+    """B2 from B1's O and lse, run twice (bit-identical: no atomics) and
+    held against its plain version."""
+    b, tq, h, d = q.shape
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    g_lse = torch.randn((b, h, tq), generator=g, device="cuda") if with_glse else None
+    scale = d ** -0.5
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale, mask)
+    got = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    again = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, o, lse, do, g_lse, mask, causal, scale)
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == q.dtype and x.shape == w.shape
+        assert torch.equal(x, y)
+        _close_to_scale(x, w, GRAD_TOL)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [63, 64, 65, 127, 128, 129, 191, 192, 193])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_ragged_tile_edges(cuda, watchdog, T, causal):
+    """B2 at the edges of its 64-row and 128-row Q tiles and 128-key
+    tiles: TMA's zero fill past the end, masked keys and rows, rows not
+    written."""
+    q, k, v = (_rand(cuda, (2, T, 3, 64), torch.bfloat16) for _ in range(3))
+    _bwd_twice_against_plain(q, k, v, causal, g=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,Tk", [(300, 50), (65, 129), (200, 1)])
+def test_flash_bwd_keys_unlike_queries(cuda, watchdog, T, Tk):
+    """Not causal, Tq != Tk: fewer keys than one tile, more keys than
+    query rows, a single key."""
+    q = _rand(cuda, (2, T, 2, 64), torch.bfloat16)
+    k, v = (_rand(cuda, (2, Tk, 2, 64), torch.bfloat16) for _ in range(2))
+    _bwd_twice_against_plain(q, k, v, False, g=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "D,dtype,causal,masked",
+    [
+        (16, torch.bfloat16, True, False),
+        (32, torch.float16, False, True),
+        (128, torch.bfloat16, True, False),
+        (128, torch.float16, False, True),
+        (64, torch.float16, True, False),
+    ],
+)
+def test_flash_bwd_head_dims_f16_and_key_mask(cuda, watchdog, D, dtype, causal, masked):
+    """B2 at D 16/32/128 (32-, 64-byte and two 128-byte panels), f16, the
+    lse cotangent, and a key mask with a fully masked batch row (its
+    gradients exactly 0)."""
+    T = 1000 if D < 128 else 600
+    q, k, v = (_rand(cuda, (2, T, 3, D), dtype) for _ in range(3))
+    mask = None
+    if masked:
+        mask = torch.rand((2, T), generator=cuda, device="cuda") > 0.3
+        mask[-1] = False
+    got = _bwd_twice_against_plain(q, k, v, causal, mask, g=cuda)
+    if masked:
+        for x in got:
+            assert x[-1].abs().max().item() == 0.0
+
+
+def _de_twice_against_plain(g, n, v, d, pad_rows=0):
+    """B6 run twice (bit-identical) and held against its plain version at
+    the whole tensor's scale and row by row (each dE row against its own
+    norm, floored at 1e-3 of the largest row's).  The features are at
+    the scale of ``_xent_inputs`` (0.1): with unit features at D = 1024
+    the logits spread by ~32, a row whose label is also its argmax has
+    ``p - 1`` of ~1e-4, and the dE row of that vocab entry is then the
+    f32 rounding of the logits on either side (kernel and plain differ
+    there by 9% of a row whose norm is 2e-6 of the largest)."""
+    y = (_rand(g, (n, d), torch.float32) * 0.1).to(torch.bfloat16)
+    e = _rand(g, (v, d), torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda", dtype=torch.int32)
+    if n > 1:
+        labels[1] = v  # out of range: no one-hot
+    scale = torch.rand((n,), generator=g, device="cuda") / n
+    scale[::7] = 0.0
+    if pad_rows:
+        y[n - pad_rows:] = 0
+        labels[n - pad_rows:] = 0
+        scale[n - pad_rows:] = 0.0
+    lse = fx.xent_fwd_plain(y, e, labels)[0]
+    got = fx.xent_de_cuda(y, e, labels, lse, scale)
+    again = fx.xent_de_cuda(y, e, labels, lse, scale)
+    torch.cuda.synchronize()
+    want = fx.xent_de_plain(y, e, labels, lse, scale)
+    assert got.dtype == torch.float32 and got.shape == (v, d)
+    assert torch.equal(got, again)
+    _close_to_scale(got, want, GRAD_TOL)
+    ref = want.norm(dim=-1)
+    floor = 1e-3 * ref.max().clamp_min(1e-30)
+    row_err = ((got - want).norm(dim=-1) / torch.maximum(ref, floor)).max().item()
+    assert row_err <= 1e-2, row_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 65, 300])
+@pytest.mark.parametrize("V", [63, 64, 65, 1001, 32001])
+def test_xent_de_ragged_rows_and_vocab(cuda, watchdog, N, V):
+    """B6 at D = 768 with N and V off its 32-row Y tile and 64-row vocab
+    tile: TMA's zero fill, vocab rows past V neither summed nor written."""
+    _de_twice_against_plain(cuda, N, V, 768)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", list(fx._DIMS))
+def test_xent_de_every_width(cuda, watchdog, D):
+    """B6 at every width it is built for: one 64-column panel (D = 64),
+    the dE columns split over two blocks (D = 1024), padding rows."""
+    _de_twice_against_plain(cuda, 300, 1001, D, pad_rows=20)

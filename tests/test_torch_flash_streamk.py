@@ -323,7 +323,7 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
     assert after["nested"] != before["nested"]
 
     # the repo's own sources: the Hopper header (TMA, mbarrier, wgmma)
-    # reaches B1 and B3 and no other kernel
+    # reaches B1, B2, B3 and B6, and not B4/B5's fused_xent
     csrc = tmp_path / "csrc"
     shutil.copytree(Path(pfa.__file__).parent / "csrc", csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -332,7 +332,7 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
         f.write("// edited\n")
     after = {n: _build.library_path(n) for n in _build.KERNELS}
     assert {n for n in _build.KERNELS if after[n] != before[n]} == {
-        "flash_fwd", "flash_bwd_streamk"}
+        "flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_de"}
     # and the delta pass's header reaches both backwards and nothing else
     with open(csrc / "flash_bwd_delta.cuh", "a") as f:
         f.write("// edited\n")
@@ -341,18 +341,19 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
         "flash_bwd", "flash_bwd_streamk"}
 
 
-def test_redesigned_kernels_are_wgmma_and_tma_only():
-    """B1 and B3 are built from wgmma and TMA (``hopper.cuh``); no WMMA
-    tile and no old tile header is left in either source, and neither
-    uses float atomics."""
+@pytest.mark.parametrize(
+    "name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_streamk.cu", "xent_de.cu"])
+def test_redesigned_kernels_are_wgmma_and_tma_only(name):
+    """B1, B2, B3 and B6 are built from wgmma and TMA (``hopper.cuh``);
+    no WMMA tile and no old tile header is left in their sources, and
+    none uses float atomics."""
     csrc = Path(pfa.__file__).parent / "csrc"
-    for name in ("flash_fwd.cu", "flash_bwd_streamk.cu"):
-        text = (csrc / name).read_text()
-        assert '#include "hopper.cuh"' in text
-        assert "wmma::" not in text and "<mma.h>" not in text
-        assert "flash_bwd_tiles.cuh" not in text
-        assert "atomicAdd" not in text and "red.global" not in text
-        assert "wgmma_ss<" in text and "tma_load_4d(" in text
+    text = (csrc / name).read_text()
+    assert '#include "hopper.cuh"' in text
+    assert "wmma::" not in text and "<mma.h>" not in text
+    assert "flash_bwd_tiles.cuh" not in text
+    assert "atomicAdd" not in text and "red.global" not in text
+    assert "wgmma_ss<" in text and "wgmma_rs<" in text and "tma_load_4d(" in text
     header = (csrc / "hopper.cuh").read_text()
     assert "cudaGetDriverEntryPoint" in header and "cp.async.bulk.tensor.4d" in header
 

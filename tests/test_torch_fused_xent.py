@@ -210,3 +210,67 @@ def test_best_vocab_xent_takes_the_chunked_path_on_cpu_and_kernels_refuse_cpu():
         fx.xent_fwd_cuda(y, e, lab)
     with pytest.raises(ValueError, match="CUDA"):
         fx.xent_de_cuda(y, e, lab, torch.zeros(64), torch.zeros(64))
+
+
+@pytest.mark.parametrize("n,v", [(1, 63), (33, 64), (65, 65)])
+def test_xent_de_plain_matches_the_pallas_de_kernel_at_ragged_sizes(n, v):
+    """B6's plain version, which the card holds the wgmma kernel to, against
+    the Pallas ``_de_kernel`` in interpret mode at N and V off the
+    kernel's 32-row Y tile and 64-row vocab tile.  The JAX side gets the
+    rows padded to its 16-row tile (zero features, row scale 0)."""
+    rng = np.random.RandomState(n * 1000 + v)
+    y = (rng.randn(n, D) * 0.3).astype(np.float32)
+    e = rng.randn(v, D).astype(np.float32)
+    labels = rng.randint(0, v, size=n).astype(np.int32)
+    scale = (rng.rand(n) / n).astype(np.float32)
+    scale[::5] = 0.0
+    n_pad, v_pad = -(-n // 16) * 16, -(-v // 32) * 32
+    yb = jnp.pad(jnp.asarray(y, jnp.bfloat16), ((0, n_pad - n), (0, 0)))
+    e_pad = jnp.pad(jnp.asarray(e, jnp.bfloat16), ((0, v_pad - v), (0, 0)))
+    lab2 = jnp.pad(jnp.asarray(labels), (0, n_pad - n))[:, None]
+    lse3, _, _ = jfx._fwd(yb, e_pad, lab2, v, 16, 32)
+    scale3 = jnp.broadcast_to(
+        jnp.pad(jnp.asarray(scale), (0, n_pad - n))[:, None], (n_pad, jfx.STAT_LANES))
+    _, want = jfx._bwd(yb, e_pad, lab2, lse3, scale3, v, 16, 32)
+    got = fx.xent_de_plain(_bf16(y), _bf16(e), torch.from_numpy(labels),
+                           torch.tensor(np.asarray(lse3[:n, 0])), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and got.shape == (v, D)
+    _close_to_scale(got.numpy(), np.asarray(want, np.float32), GRAD_TOL)
+
+
+def test_de_kernel_is_its_own_wgmma_library():
+    """B6 builds from ``csrc/xent_de.cu``, a library of its own on the
+    Hopper header; ``fused_xent.cu`` keeps B4 and B5 only."""
+    from pathlib import Path
+
+    from edl_tpu_torch.ops import _build
+
+    assert "xent_de" in _build.KERNELS and "fused_xent" in _build.KERNELS
+    assert fx._LIBRARY == {"xent_fwd": "fused_xent", "xent_dy": "fused_xent",
+                           "xent_de": "xent_de"}
+    csrc = Path(_build.CSRC)
+    de, fused = (csrc / "xent_de.cu").read_text(), (csrc / "fused_xent.cu").read_text()
+    assert 'extern "C" int edl_xent_de(' in de and '#include "hopper.cuh"' in de
+    assert "edl_xent_de" not in fused and "enum Mode { FWD = 0, DY = 1 };" in fused
+
+
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::flash_bwd_dkdv_kernel<__nv_bfloat16, 64>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::BwdArgs)", "flash_bwd (B2)"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::BwdArgs)", "flash_bwd (B2)"),
+    ("void (anonymous namespace)::xent_de_kernel<768>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::DeArgs)", "xent_de (B6)"),
+    ("void (anonymous namespace)::xent_kernel<0, 768>(__nv_bfloat16 const*, ...)",
+     "xent_fwd (B4)"),
+    ("void (anonymous namespace)::xent_kernel<1, 1024>(__nv_bfloat16 const*, ...)",
+     "xent_dy (B5)"),
+])
+def test_training_profile_files_each_kernel_under_its_own_item(name, label):
+    """``profile_training`` files B2's two kernels, B6's own kernel and
+    the B4/B5 modes of ``fused_xent.cu`` each under its item."""
+    from edl_tpu_torch.tools.profile_training import _kernel_class
+
+    assert _kernel_class(name) == label
