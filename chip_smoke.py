@@ -31,11 +31,11 @@ non-zero on the first failure.  Phases, in order:
    tile, each run twice for bit identity, and at [1, 32768, 12, 64]
    against its plain version head by head, beside B2 forced on the same
    inputs), B4-B6 fused tied-vocab cross entropy (also at the
-   long-context path's N = 32768; dE also row by row, with planted
-   faults the row check must reject).  B2 and B6 run twice for bit
-   identity; B3 is timed forced on B2's inputs and B6 also at N = 32768.
-   B1 and B3 at [1, 32768, 12, 64], B2 at [8, 2048, 12, 64] and B6 at
-   N = 16384 must not be slower than their first versions
+   long-context path's N = 32768; dY and dE also row by row, with
+   planted faults the row checks must reject).  B2 and B4-B6 run twice
+   for bit identity; B3 is timed forced on B2's inputs and B4-B6 also at
+   N = 32768.  B1 and B3 at [1, 32768, 12, 64], B2 at [8, 2048, 12, 64]
+   and B4-B6 at N = 16384 must not be slower than their first versions
    (FIRST_VERSION_MS).
 4. **Serving** — full-width ``transformer_lm`` (seeded random weights)
    behind ``DecodeEngine`` + ``TokenContinuousBatcher`` (monolithic
@@ -63,9 +63,8 @@ non-zero on the first failure.  Phases, in order:
    path's step-0 loss and gradients are held against the plain path's
    (the plain path cannot run at T=32768).
 7. **Kernels line** — one JSON object listing every ported kernel with
-   its launches on the main path, error, times and bound (for the
-   redesigned B1, B2, B3 and B6 also the shape, the achieved TFLOP/s and
-   the share of the bound).
+   its launches on the main path, error, times, bound, the shape timed,
+   the achieved TFLOP/s and the share of the bound.
 8. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
@@ -149,10 +148,11 @@ LONG_PARITY_SLOT = 256
 
 #: the first (WMMA) versions' times on the H100 (NVIDIA H100 80GB HBM3,
 #: 700 W; PERF.md section 6): B1 and B3 at [1, 32768, 12, 64], B2 at
-#: [8, 2048, 12, 64] causal, B6 at N=16384, V=32000, D=768.  The
-#: wgmma/TMA kernels that replaced them must not be slower
+#: [8, 2048, 12, 64] causal, B4, B5 and B6 at N=16384, V=32000, D=768.
+#: The wgmma/TMA kernels that replaced them must not be slower
 FIRST_VERSION_MS = {"flash_fwd": 27.47, "flash_bwd_streamk": 66.53,
-                    "flash_bwd": 2.989, "xent_de": 22.31}
+                    "flash_bwd": 2.989, "xent_fwd": 13.37, "xent_dy": 21.16,
+                    "xent_de": 22.31}
 
 
 def fail(msg: str) -> None:
@@ -797,18 +797,23 @@ def xent_bound_ms(n, v, d, mode) -> tuple:
 
 
 def _xent_case(g, n, v, d, pad_rows=0, plant=False):
-    """B4, B5 and B6 against their plain versions on one input; dE also
-    row by row (each vocab row against its own norm) and run twice for
-    bit identity.  With ``plant``, faults that the dE row check must
-    reject: the last 64 Y rows dropped (their row_scale 0) and one
-    64-row vocab tile past the first zeroed."""
+    """B4, B5 and B6 against their plain versions on one input, each run
+    twice for bit identity; dY and dE also row by row (each row against
+    its own norm).  With ``plant``, faults that the row checks must
+    reject: for dY, the last 64 Y rows' row_scale zeroed and dY rows
+    64-127 zeroed; for dE, the last 64 Y rows dropped (their row_scale
+    0) and one 64-row vocab tile past the first zeroed."""
     import torch
 
     from edl_tpu_torch.ops import fused_xent as fx
 
     y, e, labels, row_scale = _xent_inputs(g, n, v, d, pad_rows)
     got = fx.xent_fwd_cuda(y, e, labels)
+    again = fx.xent_fwd_cuda(y, e, labels)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, x2) for x, x2 in zip(got, again)):
+        fail(f"two xent_fwd runs differ at {n=} {v=}")
+    del again
     want = fx.xent_fwd_plain(y, e, labels)
     out = {"N": n, "V": v, "D": d, "pad_rows": pad_rows}
     errs = {}
@@ -819,7 +824,7 @@ def _xent_case(g, n, v, d, pad_rows=0, plant=False):
                  f"error {errs[name][1]} of its scale (tolerance {STAT_TOL})")
     out["xent_fwd"] = {"max_abs_err": max(x[0] for x in errs.values()),
                        "err_of_scale": {k: x[1] for k, x in errs.items()},
-                       "tolerance_of_scale": STAT_TOL}
+                       "tolerance_of_scale": STAT_TOL, "bit_identical_twice": True}
     lse = want[0]
     for mode, kern, plain in (("xent_dy", fx.xent_dy_cuda, fx.xent_dy_plain),
                               ("xent_de", fx.xent_de_cuda, fx.xent_de_plain)):
@@ -834,28 +839,28 @@ def _xent_case(g, n, v, d, pad_rows=0, plant=False):
             fail("xent_dy: rows with valid 0 have a gradient")
         out[mode] = {"max_abs_err": _max_abs(x, w), "err_of_scale": rel,
                      "tolerance_of_scale": GRAD_TOL}
-        if mode == "xent_de":
-            again = kern(y, e, labels, lse, row_scale)
-            torch.cuda.synchronize()
-            if not torch.equal(x, again):
-                fail(f"two xent_de runs differ at {n=} {v=}")
-            del again
-            rows = _row_err(x, w)
-            if rows > ROW_TOL:
-                fail(f"xent_de disagrees with its plain version at {n=} {v=}: row error "
-                     f"{rows} (tolerance {ROW_TOL})")
-            out[mode].update({"bit_identical_twice": True, "row_err": rows,
-                              "row_tolerance": ROW_TOL})
-            if plant:
-                late = row_scale.clone()
-                late[n - 64:] = 0
-                tile = w.clone()
-                tile[64:128] = 0
-                out[mode]["planted_faults"] = _check_rejects("xent_de", {
-                    "the last 64 Y rows dropped": [plain(y, e, labels, lse, late)],
-                    "vocab rows 64-127 zeroed": [tile],
-                }, [w])
-                del late, tile
+        again = kern(y, e, labels, lse, row_scale)
+        torch.cuda.synchronize()
+        if not torch.equal(x, again):
+            fail(f"two {mode} runs differ at {n=} {v=}")
+        del again
+        rows = _row_err(x, w)
+        if rows > ROW_TOL:
+            fail(f"{mode} disagrees with its plain version at {n=} {v=}: row error "
+                 f"{rows} (tolerance {ROW_TOL})")
+        out[mode].update({"bit_identical_twice": True, "row_err": rows,
+                          "row_tolerance": ROW_TOL})
+        if plant:
+            late = row_scale.clone()
+            late[n - 64:] = 0
+            tile = w.clone()
+            tile[64:128] = 0
+            what = "dY rows" if mode == "xent_dy" else "vocab rows"
+            out[mode]["planted_faults"] = _check_rejects(mode, {
+                "the last 64 Y rows dropped": [plain(y, e, labels, lse, late)],
+                f"{what} 64-127 zeroed": [tile],
+            }, [w])
+            del late, tile
         del x, w
     return out
 
@@ -902,21 +907,28 @@ def phase_xent():
             "tflops": flops / (kernel_ms * 1e-3) / 1e12,
         }
         log({"kernel_timing": timings[mode]})
-    # B6 at the long-context path's N = 32768 (Y is 50 MB, the size of L2)
+    # B4-B6 at the long-context path's N = 32768 (Y is 50 MB, the size
+    # of L2)
     del y, labels, row_scale, lse
     torch.cuda.empty_cache()
     n_long = LONG_BATCH * LONG_T
     y, _, labels, row_scale = _xent_inputs(g, n_long, v, d)
     lse = fx.xent_fwd_cuda(y, e, labels)[0]
-    long_ms = cuda_ms(lambda: fx.xent_de_cuda(y, e, labels, lse, row_scale), iters=5, warmup=1)
     long_gemm_ms = cuda_ms(lambda: torch.matmul(y, e.t()), iters=10)
-    bound_ms, bound_by, flops, nbytes = xent_bound_ms(n_long, v, d, "xent_de")
-    timings["xent_de"]["long"] = {
-        "shape": {"N": n_long, "V": v, "D": d}, "kernel_ms": long_ms,
-        "gemm_ms": long_gemm_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "tflops": flops / (long_ms * 1e-3) / 1e12, "bound_share": bound_ms / long_ms,
+    long_runs = {
+        "xent_fwd": lambda: fx.xent_fwd_cuda(y, e, labels),
+        "xent_dy": lambda: fx.xent_dy_cuda(y, e, labels, lse, row_scale),
+        "xent_de": lambda: fx.xent_de_cuda(y, e, labels, lse, row_scale),
     }
-    log({"kernel_timing": {"name": "xent_de", **timings["xent_de"]["long"]}})
+    for mode, kern in long_runs.items():
+        long_ms = cuda_ms(kern, iters=5, warmup=1)
+        bound_ms, bound_by, flops, nbytes = xent_bound_ms(n_long, v, d, mode)
+        timings[mode]["long"] = {
+            "shape": {"N": n_long, "V": v, "D": d}, "kernel_ms": long_ms,
+            "gemm_ms": long_gemm_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flops / (long_ms * 1e-3) / 1e12, "bound_share": bound_ms / long_ms,
+        }
+        log({"kernel_timing": {"name": mode, **timings[mode]["long"]}})
     del y, labels, row_scale, lse
     torch.cuda.empty_cache()
     errs = {mode: max(c[mode]["max_abs_err"] for c in cases) for mode in runs}
@@ -929,11 +941,12 @@ def phase_xent():
 def phase_speed_guard(kernels, xent) -> dict:
     """The redesigned kernels against their first versions' times
     (FIRST_VERSION_MS) at the same shapes: B1 and B3 at the long-context
-    shape, B2 at the training shape, B6 at N=16384.  A slower kernel
+    shape, B2 at the training shape, B4-B6 at N=16384.  A slower kernel
     fails the run."""
     long_kernels = kernels["flash_bwd_streamk"]
     timed = {"flash_fwd": long_kernels["fwd_timing"], "flash_bwd_streamk": long_kernels["timing"],
-             "flash_bwd": kernels["flash_bwd"]["timing"], "xent_de": xent["timing"]["xent_de"]}
+             "flash_bwd": kernels["flash_bwd"]["timing"],
+             **{mode: xent["timing"][mode] for mode in ("xent_fwd", "xent_dy", "xent_de")}}
     result = {name: {"ms": t["kernel_ms"], "shape": t["shape"],
                      "first_version_ms": FIRST_VERSION_MS[name],
                      "speedup": FIRST_VERSION_MS[name] / t["kernel_ms"]}
@@ -1385,8 +1398,8 @@ def main() -> int:
         "flash_bwd": ("edl_tpu_torch/ops/csrc/flash_bwd.cu", "edl_tpu/ops/flash_attention.py:341"),
         "flash_bwd_streamk": ("edl_tpu_torch/ops/csrc/flash_bwd_streamk.cu",
                               "edl_tpu/ops/flash_attention.py:495"),
-        "xent_fwd": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:54"),
-        "xent_dy": ("edl_tpu_torch/ops/csrc/fused_xent.cu", "edl_tpu/ops/fused_xent.py:151"),
+        "xent_fwd": ("edl_tpu_torch/ops/csrc/xent_fwd.cu", "edl_tpu/ops/fused_xent.py:54"),
+        "xent_dy": ("edl_tpu_torch/ops/csrc/xent_dy.cu", "edl_tpu/ops/fused_xent.py:151"),
         "xent_de": ("edl_tpu_torch/ops/csrc/xent_de.cu", "edl_tpu/ops/fused_xent.py:188"),
     }
     line = {"kernels": [{
@@ -1401,10 +1414,9 @@ def main() -> int:
         "bound_ms": timings[name]["bound_ms"],
         "bound_by": timings[name]["bound_by"],
         "library_ms": timings[name]["library_ms"],
-        # the redesigned kernels: achieved rate and share of the bound
-        **({"shape": timings[name]["shape"], "tflops": timings[name]["tflops"],
-            "bound_share": timings[name]["bound_ms"] / timings[name]["kernel_ms"]}
-           if name in ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_de") else {}),
+        # the shape timed, the achieved rate and the share of the bound
+        "shape": timings[name]["shape"], "tflops": timings[name]["tflops"],
+        "bound_share": timings[name]["bound_ms"] / timings[name]["kernel_ms"],
     } for name, (source, replaces) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

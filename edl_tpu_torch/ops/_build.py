@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "fused_xent", "xent_de")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_fwd", "xent_dy", "xent_de")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_fwd.cu, B1), both flash-attention backwards (flash_bwd.cu, B2;
-// flash_bwd_streamk.cu, B3) and the cross entropy's embedding gradient
-// (xent_de.cu, B6).  Each includes this header in its own translation
+// Hopper (sm_90a) building blocks shared by every kernel of the port:
+// the flash-attention forward (flash_fwd.cu, B1), both flash-attention
+// backwards (flash_bwd.cu, B2; flash_bwd_streamk.cu, B3) and the fused
+// cross entropy's statistics and gradients (xent_fwd.cu, B4; xent_dy.cu,
+// B5; xent_de.cu, B6).  Each includes this header in its own translation
 // unit; nothing here has external linkage.
 //
 // - mbarrier: init, arrive, arrive + expect-tx, wait on a phase parity

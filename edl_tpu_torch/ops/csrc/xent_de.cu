@@ -27,10 +27,9 @@
 //   227 KB.
 // - Per Y tile, each consumer warpgroup computes the logits of 16 of
 //   its 32 rows over the full D (S^T = E_tile Y_rows^T, wgmma m64n16,
-//   both operands in shared memory, as two partial sums so that no
-//   chain of dependent small products is longer than D / 32), so the
-//   logit product is split by rows.  dL^T is formed on that fragment, which is exactly the
-//   register A fragment of one k16 step of the dE product; the two
+//   both operands in shared memory, as interleaved partial sums, see
+//   Precision below), so the logit product is split by rows.  dL^T is
+//   formed on that fragment, which is exactly the register A fragment of one k16 step of the dE product; the two
 //   warpgroups swap their fragments through 8 KB of shared memory and
 //   one named barrier, then each accumulates dE[:, its 384 columns] +=
 //   dL^T Y_tile[:, its columns] (wgmma m64n64 per 64-column panel, A
@@ -47,6 +46,17 @@
 //   = 12.6 GB of L2 reads at N=16384 (half the 32-row first version's).
 // - The sum over Y's rows runs in one fixed order inside one block, and
 //   each dE element has one owner: no atomics, bit-identical run to run.
+//
+// Precision.  Where a row's label is also its argmax, p - 1 is tiny
+// (~1e-5 with unit features at D = 1024, where logits spread by ~32)
+// and is formed from a logit and an lse near 100, so an error of one
+// f32 ulp in either is a large share of that dL entry.  Two choices
+// keep the kernel's error there at the plain version's: the exponent is
+// (s - lse) * log2(e), subtracted first (exact near p = 1), not
+// s * log2(e) - lse * log2(e) with lse * log2(e) rounded on its own;
+// and the logits are summed in 8 interleaved chains wherever the dE
+// slice leaves the registers (2 at D = 768), since the tensor cores'
+// f32 sums lose about an ulp of the partial sum per k16 step.
 //
 // Other widths (off the main path): D = 64 has one 64-column panel, so
 // the second warpgroup computes logits but holds no dE columns.  At
@@ -82,6 +92,11 @@ struct Layout {
   static constexpr int PPW = (NPB + 1) / 2;        // dE panels of warpgroup 0
   static constexpr bool ODD = NPB % 2 != 0;        // warpgroup 1 has PPW - 1
   static constexpr int STAGES = D > 768 ? 1 : 2;
+  // independent accumulation chains of the logit product: the tensor
+  // cores' f32 sums lose about an ulp of the partial sum per k16 step,
+  // so a chain's error grows with its length; 8 chains where the dE
+  // slice leaves the registers (every D but 768), else 2
+  static constexpr int CHAINS = PPW <= 4 ? (D / 16 < 8 ? D / 16 : 8) : 2;
   static constexpr size_t e_panel = size_t(BV) * ROW_BYTES;
   static constexpr size_t y_panel = size_t(BN) * ROW_BYTES;
   static constexpr size_t e_bytes = e_panel * NP;
@@ -104,17 +119,16 @@ struct DeArgs {
   int N, V;
 };
 
-// lse * log2(e), row_scale and label of one Y row (rows past N: no
-// gradient)
+// lse, row_scale and label of one Y row (rows past N: no gradient)
 struct RowStats {
-  float lse2, rs;
+  float lse, rs;
   int lab;
 };
 
 __device__ __forceinline__ RowStats row_stats(const DeArgs& a, int n) {
   RowStats r{0.f, 0.f, -1};
   if (n < a.N) {
-    r.lse2 = a.lse[n] * LOG2E;
+    r.lse = a.lse[n];
     r.rs = a.row_scale[n];
     r.lab = a.labels[n];
   }
@@ -194,10 +208,12 @@ xent_de_kernel(const __grid_constant__ CUtensorMap tm_y,
     for (int i = 0; i < PW / 2; ++i) acc[p][i] = 0.f;
 
   // S^T = E_tile Y_rows^T over the full D for tile `it`: vocab rows x
-  // this warpgroup's 16 Y rows (16 wg .. 16 wg + 15 of the tile), as two
-  // partial sums over alternate k16 steps (two chains of D / 32 small
-  // products instead of one of D / 16), added once they are done
-  float sacc[8], sacc2[8];
+  // this warpgroup's 16 Y rows (16 wg .. 16 wg + 15 of the tile), as
+  // CHAINS partial sums over interleaved k16 steps, added pairwise once
+  // they are done (chains of D / (16 CHAINS) small products: shorter
+  // dependent chains, and less of the tensor cores' rounding)
+  constexpr int CH = L::CHAINS;
+  float sacc[CH][8];
   auto issue_logits = [&](int it) {
     const unsigned char* sy = smem + L::y_off + (it % STAGES) * L::y_bytes;
     mbar_wait(&y_full[it % STAGES], (it / STAGES) & 1);
@@ -208,19 +224,19 @@ xent_de_kernel(const __grid_constant__ CUtensorMap tm_y,
       const int koff = (kk % 4) * 32;
       const uint64_t de = smem_desc(smem + p * L::e_panel + koff, ROW_BYTES);
       const uint64_t dy = smem_desc(sy + p * L::y_panel + 16 * wg * ROW_BYTES + koff, ROW_BYTES);
-      if (kk % 2 == 0) {
-        wgmma_ss<bf16, 0, 0>(sacc, de, dy, kk > 1);
-      } else {
-        wgmma_ss<bf16, 0, 0>(sacc2, de, dy, kk > 1);
-      }
+      wgmma_ss<bf16, 0, 0>(sacc[kk % CH], de, dy, kk >= CH);
     }
     wgmma_commit();
   };
   auto finish_logits = [&]() {
-    fence_operand(sacc);
-    fence_operand(sacc2);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sacc[e] += sacc2[e];
+    for (int c = 0; c < CH; ++c) fence_operand(sacc[c]);
+#pragma unroll
+    for (int w = 1; w < CH; w *= 2)
+#pragma unroll
+      for (int c = 0; c + w < CH; c += 2 * w)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sacc[c][e] += sacc[c + w][e];
   };
 
   // this thread's Y rows of a tile: row0 + 8 nn + j
@@ -238,9 +254,9 @@ xent_de_kernel(const __grid_constant__ CUtensorMap tm_y,
     const int s = it % STAGES;
     const unsigned char* sy = smem + L::y_off + s * L::y_bytes;
 
-    // dL^T on the fragment: sacc[4 nn + 2 i + j] is vocab row vrow + 8i,
-    // tile row row0 + 8 nn + j; as the A fragment of the k16 step of this
-    // warpgroup's 16 rows: a[q] = (sacc[2q], sacc[2q + 1])
+    // dL^T on the fragment: sacc[0][4 nn + 2 i + j] is vocab row vrow +
+    // 8i, tile row row0 + 8 nn + j; as the A fragment of the k16 step of
+    // this warpgroup's 16 rows: a[q] = (sacc[0][2q], sacc[0][2q + 1])
     float dl[8];
 #pragma unroll
     for (int nn = 0; nn < 2; ++nn)
@@ -253,7 +269,9 @@ xent_de_kernel(const __grid_constant__ CUtensorMap tm_y,
           const int v = vrow + 8 * i;
           float x = 0.f;
           if (v < a.V && r.rs != 0.f) {
-            const float pr = exp2f(sacc[e] * LOG2E - r.lse2);
+            // subtract first: near p = 1 the difference is exact, and
+            // rounding lse * LOG2E on its own costs p - 1 its accuracy
+            const float pr = exp2f((sacc[0][e] - r.lse) * LOG2E);
             x = (pr - (v == r.lab ? 1.f : 0.f)) * r.rs;
           }
           dl[e] = x;

@@ -7,12 +7,13 @@ first use (see ``_build``):
 
 - ``xent_fwd_cuda`` (replaces the TPU kernel ``_fwd_kernel``): per row,
   the logsumexp, the label's logit and the row max
-  (``csrc/fused_xent.cu``);
-- ``xent_dy_cuda`` (``_dy_kernel``): ``dY = dL E`` (``csrc/fused_xent.cu``);
+  (``csrc/xent_fwd.cu``);
+- ``xent_dy_cuda`` (``_dy_kernel``): ``dY = dL E`` (``csrc/xent_dy.cu``);
 - ``xent_de_cuda`` (``_de_kernel``): ``dE = dL^T Y`` in float32
-  (``csrc/xent_de.cu``, wgmma and TMA);
+  (``csrc/xent_de.cu``);
 
-with ``dL = ((softmax - onehot) * row_scale)`` cast to bf16.  Each has a
+each its own library on ``csrc/hopper.cuh`` (wgmma and TMA), with
+``dL = ((softmax - onehot) * row_scale)`` cast to bf16.  Each has a
 plain PyTorch version (``xent_*_plain``) that the CPU runs and the card
 checks the kernel against.  ``fused_vocab_xent`` is the loss as an
 autograd function, following the JAX package's ``fused_vocab_xent``.
@@ -49,8 +50,6 @@ _ARGS = {
     "xent_dy": [_PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _PTR],
 }
 _ARGS["xent_de"] = _ARGS["xent_dy"]
-#: the library (``csrc/<name>.cu``) of each kernel
-_LIBRARY = {"xent_fwd": "fused_xent", "xent_dy": "fused_xent", "xent_de": "xent_de"}
 
 
 def reset_launch_counts() -> None:
@@ -132,11 +131,13 @@ def _check(name: str, y, e, labels, stats=()) -> Tuple[int, int, int]:
         raise ValueError(f"{name}: every operand must be on y's device")
     if d not in _DIMS:
         raise ValueError(f"{name}: feature width {d} not in {_DIMS}")
+    if y.data_ptr() % 16 or e.data_ptr() % 16:
+        raise ValueError(f"{name}: y and e must start 16-byte aligned (TMA)")
     return n, v, d
 
 
 def _launch(name: str, *args) -> None:
-    fn = _build.entry(_LIBRARY[name], f"edl_{name}", _ARGS[name])
+    fn = _build.entry(name, f"edl_{name}", _ARGS[name])
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -170,8 +171,6 @@ def xent_dy_cuda(y, e, labels, lse, row_scale) -> torch.Tensor:
 def xent_de_cuda(y, e, labels, lse, row_scale) -> torch.Tensor:
     """Launch B6; returns ``dE`` ``[V, D]`` float32."""
     n, v, d = _check("xent_de", y, e, labels, (lse, row_scale))
-    if y.data_ptr() % 16 or e.data_ptr() % 16:
-        raise ValueError("xent_de: y and e must start 16-byte aligned (TMA)")
     de = torch.empty((v, d), dtype=torch.float32, device=y.device)
     _launch("xent_de", y, e, labels, lse, row_scale, n, v, d, de)
     return de

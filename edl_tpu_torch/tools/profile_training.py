@@ -38,11 +38,9 @@ def _kernel_class(name: str) -> str:
         return "flash_bwd_streamk (B3)"
     if "flash_bwd" in n:
         return "flash_bwd (B2)"
-    if "xent_de_kernel" in n:
-        return "xent_de (B6)"
-    for mode, label in (("0", "xent_fwd (B4)"), ("1", "xent_dy (B5)")):
-        if f"xent_kernel<{mode}" in n:
-            return label
+    for kernel, label in (("xent_fwd", "B4"), ("xent_dy", "B5"), ("xent_de", "B6")):
+        if f"{kernel}_kernel" in n:
+            return f"{kernel} ({label})"
     if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90")):
         return "matmul (cuBLAS)"
     if "multi_tensor" in n or "adam" in n:

@@ -218,14 +218,22 @@ def test_autograd_takes_the_streamk_kernel_past_the_merged_range(cuda):
         _close_to_scale(got, w, GRAD_TOL)
 
 
-def _xent_inputs(g, n, v, d):
+def _xent_inputs(g, n, v, d, pad_rows=0):
+    """Features at 0.1 and the embedding at 1, an out-of-range label,
+    every 7th row at scale 0, the last ``pad_rows`` rows the padding
+    ``fused_vocab_xent`` adds, and the plain version's lse."""
     y = (_rand(g, (n, d), torch.float32) * 0.1).to(torch.bfloat16)
     e = _rand(g, (v, d), torch.bfloat16)
     labels = torch.randint(0, v, (n,), generator=g, device="cuda", dtype=torch.int32)
-    labels[1] = v  # out of range: label logit 0, no one-hot (ROADMAP section C)
-    lse, _, _ = fx.xent_fwd_plain(y, e, labels)
+    if n > 1:
+        labels[1] = v  # out of range: label logit 0, no one-hot (ROADMAP section C)
     scale = torch.rand((n,), generator=g, device="cuda") / n
     scale[::7] = 0.0  # rows with valid 0
+    if pad_rows:
+        y[n - pad_rows:] = 0
+        labels[n - pad_rows:] = 0
+        scale[n - pad_rows:] = 0.0
+    lse, _, _ = fx.xent_fwd_plain(y, e, labels)
     return y, e, labels, lse, scale
 
 
@@ -449,23 +457,9 @@ def _de_twice_against_plain(g, n, v, d, pad_rows=0):
     """B6 run twice (bit-identical) and held against its plain version at
     the whole tensor's scale and row by row (each dE row against its own
     norm, floored at 1e-3 of the largest row's).  The features are at
-    the scale of ``_xent_inputs`` (0.1): with unit features at D = 1024
-    the logits spread by ~32, a row whose label is also its argmax has
-    ``p - 1`` of ~1e-4, and the dE row of that vocab entry is then the
-    f32 rounding of the logits on either side (kernel and plain differ
-    there by 9% of a row whose norm is 2e-6 of the largest)."""
-    y = (_rand(g, (n, d), torch.float32) * 0.1).to(torch.bfloat16)
-    e = _rand(g, (v, d), torch.bfloat16)
-    labels = torch.randint(0, v, (n,), generator=g, device="cuda", dtype=torch.int32)
-    if n > 1:
-        labels[1] = v  # out of range: no one-hot
-    scale = torch.rand((n,), generator=g, device="cuda") / n
-    scale[::7] = 0.0
-    if pad_rows:
-        y[n - pad_rows:] = 0
-        labels[n - pad_rows:] = 0
-        scale[n - pad_rows:] = 0.0
-    lse = fx.xent_fwd_plain(y, e, labels)[0]
+    the scale of ``_xent_inputs`` (0.1); unit features are held against
+    float64 in ``test_xent_grads_unit_features_against_float64``."""
+    y, e, labels, lse, scale = _xent_inputs(g, n, v, d, pad_rows)
     got = fx.xent_de_cuda(y, e, labels, lse, scale)
     again = fx.xent_de_cuda(y, e, labels, lse, scale)
     torch.cuda.synchronize()
@@ -494,3 +488,125 @@ def test_xent_de_every_width(cuda, watchdog, D):
     """B6 at every width it is built for: one 64-column panel (D = 64),
     the dE columns split over two blocks (D = 1024), padding rows."""
     _de_twice_against_plain(cuda, 300, 1001, D, pad_rows=20)
+
+
+# -- B4 (xent_fwd.cu) and B5 (xent_dy.cu): ragged N and V, every width,
+# run twice bit-identical, as B6's ------------------------------------------------
+
+
+def _fwd_stats_twice_against_plain(g, n, v, d, pad_rows=0):
+    """B4 run twice (bit-identical) and held against its plain version:
+    lse, label logit and row max."""
+    y, e, labels, _, _ = _xent_inputs(g, n, v, d, pad_rows)
+    got = fx.xent_fwd_cuda(y, e, labels)
+    again = fx.xent_fwd_cuda(y, e, labels)
+    torch.cuda.synchronize()
+    want = fx.xent_fwd_plain(y, e, labels)
+    for x, x2, w in zip(got, again, want):
+        assert x.dtype == torch.float32 and x.shape == (n,)
+        assert torch.equal(x, x2)
+        torch.testing.assert_close(x, w, atol=1e-3, rtol=1e-4)
+    if n > 1:
+        assert got[1][1].item() == 0.0  # the out-of-range label
+
+
+def _dy_twice_against_plain(g, n, v, d, pad_rows=0):
+    """B5 run twice (bit-identical) and held against its plain version at
+    the whole tensor's scale and row by row (each dY row against its own
+    norm, floored at 1e-3 of the largest row's); rows at scale 0 are
+    exactly 0."""
+    y, e, labels, lse, scale = _xent_inputs(g, n, v, d, pad_rows)
+    got = fx.xent_dy_cuda(y, e, labels, lse, scale)
+    again = fx.xent_dy_cuda(y, e, labels, lse, scale)
+    torch.cuda.synchronize()
+    want = fx.xent_dy_plain(y, e, labels, lse, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, d)
+    assert torch.equal(got, again)
+    assert got[scale == 0].abs().max().item() == 0.0
+    _close_to_scale(got, want, GRAD_TOL)
+    ref = want.float().norm(dim=-1)
+    floor = 1e-3 * ref.max().clamp_min(1e-30)
+    row_err = ((got.float() - want.float()).norm(dim=-1) / torch.maximum(ref, floor)).max().item()
+    assert row_err <= 1e-2, row_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 65, 300])
+@pytest.mark.parametrize("V", [63, 64, 65, 1001, 32001])
+def test_xent_fwd_ragged_rows_and_vocab(cuda, watchdog, N, V):
+    """B4 at D = 768 with N and V off its 128-row Y tile and 256-row
+    vocab tile: TMA's zero fill, vocab rows past V masked, rows past N
+    not written."""
+    _fwd_stats_twice_against_plain(cuda, N, V, 768)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 65, 300])
+@pytest.mark.parametrize("V", [63, 64, 65, 1001, 32001])
+def test_xent_dy_ragged_rows_and_vocab(cuda, watchdog, N, V):
+    """B5 at D = 768 with N and V off its 64-row Y tile and 32-row vocab
+    tile: TMA's zero fill, vocab rows past V neither summed nor read."""
+    _dy_twice_against_plain(cuda, N, V, 768)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", list(fx._DIMS))
+def test_xent_fwd_every_width(cuda, watchdog, D):
+    """B4 at every width it is built for (1 to 16 panels a tile), with
+    padding rows."""
+    _fwd_stats_twice_against_plain(cuda, 300, 1001, D, pad_rows=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", list(fx._DIMS))
+def test_xent_dy_every_width(cuda, watchdog, D):
+    """B5 at every width it is built for: one 64-column panel (D = 64),
+    the dY columns split over two blocks (D = 1024), padding rows."""
+    _dy_twice_against_plain(cuda, 300, 1001, D, pad_rows=20)
+
+
+@pytest.mark.cuda
+def test_xent_fwd_label_that_is_the_argmax_is_a_hit(cuda, watchdog):
+    """Accuracy is ``label_logit >= row_max``: where each row's label is
+    its argmax (features along their label's embedding row), B4 takes
+    both from the same f32 logit, so they tie exactly, in every vocab
+    tile and at the ragged last one."""
+    n, v, d = 300, 1001, 768
+    e = _rand(cuda, (v, d), torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=cuda, device="cuda", dtype=torch.int32)
+    labels[-1] = v - 1
+    noise = _rand(cuda, (n, d), torch.float32) * 0.05
+    y = (e[labels.long()].float() * 0.1 + noise).to(torch.bfloat16)
+    assert torch.equal((y.float() @ e.float().t()).argmax(dim=1), labels.long())
+    lse, label_logit, row_max = fx.xent_fwd_cuda(y, e, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(label_logit, row_max)
+    assert bool((label_logit >= row_max).all())
+    assert bool((lse >= row_max).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["xent_dy", "xent_de"])
+@pytest.mark.parametrize("D", [768, 1024])
+def test_xent_grads_unit_features_against_float64(cuda, watchdog, kernel, D):
+    """B5 and B6 with unit bf16 features (logits spread by ~28-32),
+    run twice bit-identical and held, like their plain versions, row by
+    row against the float64 evaluation of the same function
+    (``tools/xent_precision.py``).  Seed 0 at D = 1024 has a row whose
+    label is its argmax: p - 1 there is ~1e-5, the ill-conditioned case
+    of ROADMAP C-1."""
+    from edl_tpu_torch.tools import xent_precision as xp
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    y, e, labels, lse, scale = xp.xent_inputs(g, 300, 1001, D, 1.0)
+    run, plain = {"xent_dy": (fx.xent_dy_cuda, fx.xent_dy_plain),
+                  "xent_de": (fx.xent_de_cuda, fx.xent_de_plain)}[kernel]
+    got = run(y, e, labels, lse, scale)
+    again = run(y, e, labels, lse, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = xp.float64_grads(y, e, labels, lse, scale)[0 if kernel == "xent_dy" else 1]
+    kernel_err = xp.row_errors(got, ref).max().item()
+    plain_err = xp.row_errors(plain(y, e, labels, lse, scale), ref).max().item()
+    assert kernel_err <= 1e-2, (kernel_err, plain_err)

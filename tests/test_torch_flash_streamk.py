@@ -284,7 +284,7 @@ def test_training_profile_classes_b3_apart_from_b2():
     assert {_kernel_class(n) for n in b2} == {"flash_bwd (B2)"}
     assert _kernel_class("void (anonymous namespace)::flash_fwd_kernel<__half, 128>(...)") \
         == "flash_fwd (B1)"
-    assert _kernel_class("void (anonymous namespace)::xent_kernel<1, 768>(...)") == "xent_dy (B5)"
+    assert _kernel_class("void (anonymous namespace)::xent_dy_kernel<768>(...)") == "xent_dy (B5)"
 
 
 def test_longcontext_model_at_full_length_matches_the_reference():
@@ -323,7 +323,7 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
     assert after["nested"] != before["nested"]
 
     # the repo's own sources: the Hopper header (TMA, mbarrier, wgmma)
-    # reaches B1, B2, B3 and B6, and not B4/B5's fused_xent
+    # reaches every kernel, B1-B6
     csrc = tmp_path / "csrc"
     shutil.copytree(Path(pfa.__file__).parent / "csrc", csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -332,7 +332,7 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
         f.write("// edited\n")
     after = {n: _build.library_path(n) for n in _build.KERNELS}
     assert {n for n in _build.KERNELS if after[n] != before[n]} == {
-        "flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_de"}
+        "flash_fwd", "flash_bwd", "flash_bwd_streamk", "xent_fwd", "xent_dy", "xent_de"}
     # and the delta pass's header reaches both backwards and nothing else
     with open(csrc / "flash_bwd_delta.cuh", "a") as f:
         f.write("// edited\n")
@@ -341,19 +341,23 @@ def test_kernel_library_names_hash_only_the_headers_a_source_includes(tmp_path, 
         "flash_bwd", "flash_bwd_streamk"}
 
 
-@pytest.mark.parametrize(
-    "name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_streamk.cu", "xent_de.cu"])
+@pytest.mark.parametrize("name", [
+    "flash_fwd.cu", "flash_bwd.cu", "flash_bwd_streamk.cu", "xent_fwd.cu", "xent_dy.cu",
+    "xent_de.cu"])
 def test_redesigned_kernels_are_wgmma_and_tma_only(name):
-    """B1, B2, B3 and B6 are built from wgmma and TMA (``hopper.cuh``);
-    no WMMA tile and no old tile header is left in their sources, and
-    none uses float atomics."""
+    """B1-B6 are built from wgmma and TMA (``hopper.cuh``); no WMMA tile
+    and no old tile header is left in their sources, and none uses float
+    atomics.  Every product but B4's (one product with a row-statistics
+    epilogue, both operands in shared memory) takes a register operand."""
     csrc = Path(pfa.__file__).parent / "csrc"
     text = (csrc / name).read_text()
     assert '#include "hopper.cuh"' in text
     assert "wmma::" not in text and "<mma.h>" not in text
     assert "flash_bwd_tiles.cuh" not in text
     assert "atomicAdd" not in text and "red.global" not in text
-    assert "wgmma_ss<" in text and "wgmma_rs<" in text and "tma_load_4d(" in text
+    assert "wgmma_ss<" in text and "tma_load_4d(" in text
+    assert ("wgmma_rs<" in text) == (name != "xent_fwd.cu")
+    assert not (csrc / "fused_xent.cu").exists()
     header = (csrc / "hopper.cuh").read_text()
     assert "cudaGetDriverEntryPoint" in header and "cp.async.bulk.tensor.4d" in header
 

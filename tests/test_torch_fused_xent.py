@@ -239,19 +239,21 @@ def test_xent_de_plain_matches_the_pallas_de_kernel_at_ragged_sizes(n, v):
 
 
 def test_de_kernel_is_its_own_wgmma_library():
-    """B6 builds from ``csrc/xent_de.cu``, a library of its own on the
-    Hopper header; ``fused_xent.cu`` keeps B4 and B5 only."""
+    """B4, B5 and B6 each build from their own source on the Hopper
+    header (``csrc/xent_fwd.cu``, ``xent_dy.cu``, ``xent_de.cu``), each
+    exporting its own entry point; the WMMA ``fused_xent.cu`` is gone."""
     from pathlib import Path
 
     from edl_tpu_torch.ops import _build
 
-    assert "xent_de" in _build.KERNELS and "fused_xent" in _build.KERNELS
-    assert fx._LIBRARY == {"xent_fwd": "fused_xent", "xent_dy": "fused_xent",
-                           "xent_de": "xent_de"}
     csrc = Path(_build.CSRC)
-    de, fused = (csrc / "xent_de.cu").read_text(), (csrc / "fused_xent.cu").read_text()
-    assert 'extern "C" int edl_xent_de(' in de and '#include "hopper.cuh"' in de
-    assert "edl_xent_de" not in fused and "enum Mode { FWD = 0, DY = 1 };" in fused
+    assert not (csrc / "fused_xent.cu").exists() and "fused_xent" not in _build.KERNELS
+    for name in ("xent_fwd", "xent_dy", "xent_de"):
+        assert name in _build.KERNELS
+        text = (csrc / f"{name}.cu").read_text()
+        assert f'extern "C" int edl_{name}(' in text and '#include "hopper.cuh"' in text
+        others = {"xent_fwd", "xent_dy", "xent_de"} - {name}
+        assert not any(f"edl_{o}(" in text for o in others)
 
 
 @pytest.mark.parametrize("name,label", [
@@ -263,14 +265,14 @@ def test_de_kernel_is_its_own_wgmma_library():
      "(anonymous namespace)::BwdArgs)", "flash_bwd (B2)"),
     ("void (anonymous namespace)::xent_de_kernel<768>"
      "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::DeArgs)", "xent_de (B6)"),
-    ("void (anonymous namespace)::xent_kernel<0, 768>(__nv_bfloat16 const*, ...)",
-     "xent_fwd (B4)"),
-    ("void (anonymous namespace)::xent_kernel<1, 1024>(__nv_bfloat16 const*, ...)",
-     "xent_dy (B5)"),
+    ("void (anonymous namespace)::xent_fwd_kernel<768>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::FwdArgs)", "xent_fwd (B4)"),
+    ("void (anonymous namespace)::xent_dy_kernel<1024>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::DyArgs)", "xent_dy (B5)"),
 ])
 def test_training_profile_files_each_kernel_under_its_own_item(name, label):
-    """``profile_training`` files B2's two kernels, B6's own kernel and
-    the B4/B5 modes of ``fused_xent.cu`` each under its item."""
+    """``profile_training`` files B2's two kernels and each of B4, B5
+    and B6's own kernels under its item."""
     from edl_tpu_torch.tools.profile_training import _kernel_class
 
     assert _kernel_class(name) == label
