@@ -5,8 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's serving and training paths on the card and exits
-non-zero on the first failure.  Phases, in order:
+It drives the port's serving and training paths and its elastic
+runtime on the card and exits non-zero on the first failure.  Phases, in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -62,10 +62,28 @@ non-zero on the first failure.  Phases, in order:
    fall; and at batch 1, T=2048 with B3 forced at 8 slots, the kernel
    path's step-0 loss and gradients are held against the plain path's
    (the plain path cannot run at T=32768).
-7. **Kernels line** — one JSON object listing every ported kernel with
+7. **Elastic** — the training phase's configuration (full-width
+   ``transformer_lm``, 8 x 2048, seed 0, Adam at 1e-3) through
+   ``ElasticTrainer`` with a ``LocalCoordinator`` and a
+   ``HostDRAMStore`` spilling under a temp directory, checkpoint
+   interval 4: run A, 12 steps at pipeline depth 2; run B, the same with
+   a graceful generation bump at step 6 (a standby member registers, the
+   active one leaves: flush, re-form, restore) and the device state
+   lost at step 9 (replay from the step-8 checkpoint); run C, as A at
+   depth 0; run D, a cold start from B's spill as it stood at the kill.
+   B, C and D must give A's loss stream bit for bit, every dispatched
+   step 12/12/1/1/1 launches, B's resizes graceful True/False with
+   ``restored_step`` 6/8, ``replayed_steps`` 0/1, ``compiles`` 0, and
+   no pinned allocation inside the bump's barrier; then one short
+   ``launcher.run`` (4 steps, no coordinator address) must match A's
+   first steps.  Prints the checkpoint bytes, flush seconds and
+   device-to-host GB/s, each resize's phase seconds, the replay and
+   cold-start seconds, and steady-state step ms and device busy share
+   at depth 2 and 0, with the card's name and power limit.
+8. **Kernels line** — one JSON object listing every ported kernel with
    its launches on the main path, error, times, bound, the shape timed,
    the achieved TFLOP/s and the share of the bound.
-8. **Last line** — ``{"ok": true, "device": {...}}``.
+9. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -146,6 +164,20 @@ LONG_STEPS = 3
 LONG_PARITY_T = 2048
 LONG_PARITY_SLOT = 256
 
+#: the elastic phase: full-width transformer_lm at the training phase's
+#: 8 x 2048, checkpoint interval 4; run B bumps the generation at step 6
+#: (graceful: flush, re-form, restore) and loses the device state at
+#: step 9 (replay from the step-8 checkpoint); runs A and C then take 8
+#: more steps with no checkpoint for their steady-state step time, and
+#: 4 under the profiler for the device's busy share
+ELASTIC_STEPS = 12
+ELASTIC_INTERVAL = 4
+ELASTIC_BUMP_AT = 6
+ELASTIC_KILL_AT = 9
+ELASTIC_TIMED_STEPS = 8
+ELASTIC_PROFILE_STEPS = 4
+LAUNCHER_STEPS = 4
+
 #: the first (WMMA) versions' times on the H100 (NVIDIA H100 80GB HBM3,
 #: 700 W; PERF.md section 6): B1 and B3 at [1, 32768, 12, 64], B2 at
 #: [8, 2048, 12, 64] causal, B4, B5 and B6 at N=16384, V=32000, D=768.
@@ -205,6 +237,7 @@ def phase_device():
         "cuda": torch.version.cuda,
     }
     log({"device": info})
+    return card
 
 
 # -- phase 2 --------------------------------------------------------------
@@ -1364,6 +1397,260 @@ def phase_longcontext_training():
     return result
 
 
+# -- phase 7 --------------------------------------------------------------
+
+
+def _elastic_trainer(model, it, spill_dir, depth):
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.runtime import ElasticTrainer, LocalCoordinator
+
+    coord = LocalCoordinator(target_world=1, max_world=2)
+    coord.register("tr0")
+    et = ElasticTrainer(model, it, coord, store=HostDRAMStore(spill_dir=spill_dir),
+                        lr=TRAIN_LR, device="cuda", checkpoint_interval=ELASTIC_INTERVAL,
+                        seed=SEED)
+    et.pipeline_depth = depth
+    return et, coord
+
+
+def _check_run_launches(et, want, what):
+    """Every dispatched step launched exactly ``want``: the counts were
+    zeroed before the run and are read after it."""
+    import torch
+
+    torch.cuda.synchronize()
+    n = et.pipeline_stats["dispatched"]
+    got, expect = _all_launches(), {k: v * n for k, v in want.items()}
+    if got != expect:
+        fail(f"elastic run {what}: {n} steps launched {got}, want {expect} ({want} per step)")
+    return n
+
+
+def _check_stream(et, ref, what):
+    """The run's loss stream, by step number, bit-identical to run A's."""
+    bad = [(r.step, r.loss, ref.get(r.step)) for r in et.history if r.loss != ref.get(r.step)]
+    if bad:
+        fail(f"elastic run {what} is not bit-identical to run A: (step, loss, A's) {bad[:4]}")
+
+
+def _steady_state(et, what) -> dict:
+    """Steady-state step time and the device's busy share, once the
+    run's background checkpoint work has finished: the wall time per
+    step of ELASTIC_TIMED_STEPS more steps with no checkpoint (its first
+    dispatch and last drain included), then ELASTIC_PROFILE_STEPS under
+    torch.profiler for the device's kernel time per step (kernels only:
+    copies run on the copy engines).  The lagged StepRecord seconds are
+    not used: at depth 2 the window's first harvest waits behind two
+    more dispatches, which the launch queue throttles to the device's
+    pace, so their mean over a short window reads low."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from edl_tpu_torch.tools.profile_serving import _device_us
+
+    et.store.wait()
+    interval, et.checkpoint_interval = et.checkpoint_interval, 0
+    with_ckpt_ms = float(np.mean([r.seconds for r in et.history[2:ELASTIC_STEPS]])) * 1e3
+    stats0 = dict(et.pipeline_stats)
+    t0 = time.perf_counter()
+    et.run(ELASTIC_STEPS + ELASTIC_TIMED_STEPS)
+    step_ms = (time.perf_counter() - t0) * 1e3 / ELASTIC_TIMED_STEPS
+    per_step = {k: (et.pipeline_stats[k] - stats0[k]) * 1e3 / ELASTIC_TIMED_STEPS
+                for k in ("stage_s", "dispatch_s", "device_wait_s")}
+    start = len(et.history)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        et.run(ELASTIC_STEPS + ELASTIC_TIMED_STEPS + ELASTIC_PROFILE_STEPS)
+        torch.cuda.synchronize()
+    et.checkpoint_interval = interval
+    if len(et.history) - start != ELASTIC_PROFILE_STEPS:
+        fail(f"elastic run {what}: the profiled window ran {len(et.history) - start} steps")
+    kernel_us = sum(
+        _device_us(e) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "memcpy" not in e.key.lower() and "memset" not in e.key.lower())
+    device_ms = kernel_us / 1e3 / ELASTIC_PROFILE_STEPS
+    if device_ms <= 0:
+        fail(f"elastic run {what}: the profiler saw no device time")
+    return {"step_ms": step_ms, "device_ms_per_step": device_ms,
+            "busy_share": device_ms / step_ms,
+            # host ms per step: batch staging, dispatch, harvest wait
+            "host_ms_per_step": {k[:-2]: v for k, v in per_step.items()},
+            # the run itself, checkpoint every ELASTIC_INTERVAL steps
+            # (mean lag-corrected step seconds of steps 2-11)
+            "step_ms_with_checkpoints": with_ckpt_ms}
+
+
+def _link_spill(src, dst):
+    """The spill directory as it stands now, kept by hard links (the run
+    goes on pruning its own names)."""
+    import os
+
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        os.link(os.path.join(src, name), os.path.join(dst, name))
+
+
+def phase_elastic(card: str):
+    """Full-width transformer_lm through ElasticTrainer (LocalCoordinator,
+    host-DRAM checkpoints with a spill dir) and through launcher.run."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch import launcher
+    from edl_tpu_torch.checkpoint.hostdram import PINNED
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import ShardedDataIterator, synthetic_dataset
+
+    model = get_model("transformer_lm")  # full width: bf16 compute, f32 params
+    layers = model.decode.layers
+    want = {"flash_fwd": layers, "flash_bwd": layers, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    it = ShardedDataIterator(
+        synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH, seed=SEED)
+    out = {"card": card, "model": "transformer_lm", "batch": TRAIN_BATCH,
+           "seq_len": model.tokens_per_example, "lr": TRAIN_LR,
+           "checkpoint_interval": ELASTIC_INTERVAL}
+    tmp = tempfile.mkdtemp(prefix="edl-elastic-")
+
+    def free():
+        """Drop a finished run's state, checkpoints and pinned buffers
+        (its pinned sets go back to the pool)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        # A: fixed world, pipeline depth 2
+        _reset_launches()
+        t0 = time.perf_counter()
+        pinned0 = PINNED.allocations
+        a, _ = _elastic_trainer(model, it, f"{tmp}/a", 2)
+        a.run(ELASTIC_STEPS)
+        a.store.wait()
+        out["a_seconds"] = time.perf_counter() - t0
+        # the process's first checkpoints pin their host buffers
+        out["pinned_allocations_run_a"] = PINNED.allocations - pinned0
+        out["a_steps"] = _check_run_launches(a, want, "A")
+        ref = {r.step: r.loss for r in a.history}
+        losses = [ref[s] for s in range(ELASTIC_STEPS)]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"elastic run A: losses {losses} are not finite or do not fall")
+        out["losses"] = losses
+        out["steady_depth2"] = _steady_state(a, "A")
+        ckpt = a.store.latest()
+        n_params = sum(p.numel() for p in a.state.params.parameters())
+        n_tensors = len(list(a.state.params.parameters()))
+        out["checkpoint_bytes"] = ckpt.nbytes()
+        if ckpt.nbytes() != 4 * (3 * n_params + n_tensors):
+            fail(f"checkpoint of {ckpt.nbytes()} bytes, want 4 x (3 x {n_params} + {n_tensors})")
+        del ckpt
+        del a
+        free()
+        shutil.rmtree(f"{tmp}/a")
+
+        # C: depth 0, every step's launches read on its own
+        _reset_launches()
+
+        def per_step(rec):
+            got = _all_launches()
+            if got != want:
+                fail(f"elastic run C step {rec.step} launched {got}, want {want}")
+            _reset_launches()
+
+        c, _ = _elastic_trainer(model, it, f"{tmp}/c", 0)
+        c.run(ELASTIC_STEPS, on_step=per_step)
+        c.store.wait()
+        _check_stream(c, ref, "C (depth 0)")
+        out["steady_depth0"] = _steady_state(c, "C")
+        del c
+        free()
+        shutil.rmtree(f"{tmp}/c")
+
+        # B: bump at 6 (graceful), kill at 9 (replay from 8)
+        _reset_launches()
+        b, coord = _elastic_trainer(model, it, f"{tmp}/b", 2)
+        b.run(ELASTIC_BUMP_AT)
+        b.store.wait()
+        pinned = {}
+        b.on_resize = lambda ev: pinned.setdefault(ev.generation, PINNED.allocations)
+        allocs_before_bump = PINNED.allocations
+        coord.register("tr1")
+        coord.deregister("tr0")
+        b.run(ELASTIC_KILL_AT)
+        b.store.wait()
+        _link_spill(f"{tmp}/b", f"{tmp}/at_kill")
+        b.inject_failure()
+        t0 = time.perf_counter()
+        b.run(ELASTIC_STEPS)
+        out["b_after_kill_seconds"] = time.perf_counter() - t0
+        b.store.wait()
+        out["b_steps"] = _check_run_launches(b, want, "B")
+        _check_stream(b, ref, "B (bump + kill)")
+        events = b.resize_events
+        got = [(e.graceful, e.restored_step, e.replayed_steps, e.compiles) for e in events]
+        expect = [(False, 0, 0, 0), (True, ELASTIC_BUMP_AT, 0, 0),
+                  (False, ELASTIC_KILL_AT - 1, 1, 0)]
+        if got != expect:
+            fail(f"elastic run B resize events (graceful, restored, replayed, compiles) "
+                 f"{got}, want {expect}")
+        bump, kill = events[1], events[2]
+        out["pinned_allocations_in_bump"] = pinned[bump.generation] - allocs_before_bump
+        if out["pinned_allocations_in_bump"]:
+            fail(f"the graceful flush allocated {out['pinned_allocations_in_bump']} pinned buffers")
+        replayed = [r for r in b.history if r.step == ELASTIC_KILL_AT - 1][-1]
+        out["resizes"] = [{"generation": e.generation, "graceful": e.graceful,
+                           "restored_step": e.restored_step, "replayed_steps": e.replayed_steps,
+                           "compiles": e.compiles, "restore_source": e.restore_source,
+                           "seconds": e.seconds, "phase_seconds": e.phase_seconds}
+                          for e in events]
+        out["flush_s"] = bump.phase_seconds["flush"]
+        out["d2h_gb_per_s"] = out["checkpoint_bytes"] / bump.phase_seconds["flush"] / 1e9
+        out["replay"] = {"resize_s": kill.seconds, "replayed_step_s": replayed.seconds,
+                         "seconds": kill.seconds + replayed.seconds}
+        del b
+        free()
+
+        # D: a cold start from B's spill as it stood at the kill
+        _reset_launches()
+        t0 = time.perf_counter()
+        d, _ = _elastic_trainer(model, it, f"{tmp}/at_kill", 2)
+        d.run(ELASTIC_STEPS)
+        d.store.wait()
+        out["d_seconds"] = time.perf_counter() - t0
+        out["d_steps"] = _check_run_launches(d, want, "D")
+        _check_stream(d, ref, "D (cold start)")
+        ev = d.resize_events[0]
+        if (ev.restored_step, ev.restore_source, [r.step for r in d.history]) != (
+                ELASTIC_KILL_AT - 1, "local", list(range(ELASTIC_KILL_AT - 1, ELASTIC_STEPS))):
+            fail(f"elastic run D restored step {ev.restored_step} ({ev.restore_source}), "
+                 f"ran {[r.step for r in d.history]}")
+        out["cold_start"] = {"seconds": ev.seconds, "phase_seconds": ev.phase_seconds}
+        del d
+        free()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the entry point: launcher.run, no coordinator address
+    _reset_launches()
+    t0 = time.perf_counter()
+    et = launcher.run("transformer_lm", steps=LAUNCHER_STEPS, seed=SEED,
+                      dataset_examples=8 * TRAIN_BATCH, global_batch_size=TRAIN_BATCH,
+                      lr=TRAIN_LR, device="cuda")
+    out["launcher_seconds"] = time.perf_counter() - t0
+    out["launcher_steps"] = _check_run_launches(et, want, "launcher.run")
+    _check_stream(et, ref, "launcher.run")
+    if len(et.history) != LAUNCHER_STEPS:
+        fail(f"launcher.run ran {len(et.history)} steps, want {LAUNCHER_STEPS}")
+    del et
+    free()
+    out["launches_per_step"] = want
+    out["pinned_pool"] = {"allocations": PINNED.allocations, "bytes": PINNED.allocated_bytes}
+    log({"elastic": out})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -1376,7 +1663,7 @@ def main() -> int:
         return 2
     import edl_tpu_torch  # noqa: F401  (fails here when run without the repo)
 
-    phase_device()
+    card = phase_device()
     phase_build()
     kernels = {"flash_fwd": phase_kernels(), "flash_bwd": phase_flash_bwd(),
                "flash_bwd_streamk": phase_long_kernels()}
@@ -1385,6 +1672,7 @@ def main() -> int:
     serving = phase_serving()
     training = phase_training()
     long_training = phase_longcontext_training()
+    phase_elastic(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

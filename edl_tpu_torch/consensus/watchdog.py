@@ -1,0 +1,108 @@
+"""Collective watchdog: a deadline on in-flight step/control futures (a
+copy of ``edl_tpu/consensus/watchdog.py``).
+
+gloo collectives have no native timeout: when a peer stands down (or
+wedges) mid-step, the survivor's blocking fetch waits forever — the
+exact hang the step bus prevents for COORDINATED teardowns.  The
+watchdog is the backstop for everything else: each harvest-time fetch
+runs on a reusable helper thread with a deadline; on expiry the fetch
+thread is abandoned (it is stuck inside the collective — it leaks with
+the dead world's handles) and ``CollectiveTimeout`` raises into the
+harvest path, where the shared ``_absorb_step_failure`` recovery buries
+the world and holds for a fresh generation instead of hanging until the
+job's timeout.
+
+The JAX package's chaos probe (``consensus.watchdog.trip``), its
+flight-recorder event and the reuser hooks of its serving dispatch
+watchdog are not ported yet.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Optional
+
+
+class CollectiveTimeout(RuntimeError):
+    """An in-flight step/control future missed the watchdog deadline:
+    the collective is considered wedged (peer stood down or died
+    silently) and the world must be buried and re-formed."""
+
+
+class CollectiveWatchdog:
+    """Deadline-guarded fetches.  ``timeout <= 0`` disables the guard
+    (fetches run inline — the single-process default, where a wedge is
+    impossible and the thread hop would be pure overhead)."""
+
+    def __init__(self, timeout: float = 0.0, registry=None):
+        from edl_tpu_torch import telemetry
+
+        self.timeout = timeout
+        self.registry = registry if registry is not None else telemetry.get_registry()
+        self._m_trips = self.registry.counter(
+            "edl_consensus_watchdog_trips_total"
+        )
+        self.trips = 0
+        self._lock = threading.Lock()
+        self._q: Optional[queue.SimpleQueue] = None
+        self._worker: Optional[threading.Thread] = None
+
+    # -- worker --------------------------------------------------------------
+    def _ensure_worker(self) -> queue.SimpleQueue:
+        with self._lock:
+            if self._worker is None or not self._worker.is_alive():
+                self._q = queue.SimpleQueue()
+                self._worker = threading.Thread(
+                    target=self._loop,
+                    args=(self._q,),
+                    daemon=True,
+                    name="edl-collective-fetch",
+                )
+                self._worker.start()
+            return self._q
+
+    @staticmethod
+    def _loop(q: queue.SimpleQueue) -> None:
+        while True:
+            task = q.get()
+            if task is None:
+                return
+            fn, box, done = task
+            try:
+                box["val"] = fn()
+            except BaseException as e:  # delivered to the waiter
+                box["err"] = e
+            done.set()
+
+    def _abandon_worker(self) -> None:
+        """The worker is stuck inside a wedged collective: forget it
+        (the thread leaks with the dead world — un-joinable by design)
+        and let the next fetch start fresh."""
+        with self._lock:
+            self._worker = None
+            self._q = None
+
+    # -- the guarded fetch ---------------------------------------------------
+    def fetch(self, fn: Callable, what: str = "step"):
+        """Run ``fn`` (a blocking fetch) under the deadline.  Raises
+        ``CollectiveTimeout`` on expiry; otherwise returns ``fn()``'s
+        value (exceptions propagate unchanged)."""
+        if self.timeout <= 0:
+            return fn()
+        q = self._ensure_worker()
+        box: dict = {"val": None, "err": None}
+        done = threading.Event()
+        q.put((fn, box, done))
+        if not done.wait(self.timeout):
+            self._abandon_worker()
+            self.trips += 1
+            self._m_trips.inc()
+            raise CollectiveTimeout(
+                f"{what} future missed the {self.timeout}s collective "
+                "watchdog deadline (wedged allreduce? peer stood down "
+                "without agreement?)"
+            )
+        if box["err"] is not None:
+            raise box["err"]
+        return box["val"]

@@ -1,9 +1,20 @@
-"""Trainer runtime of the port: the deterministic data stream and the
-data-parallel train step.  The elastic loop (``ElasticTrainer``, the
-coordinators, ``HostDRAMStore``, ``BatchStager``) comes with a later
-slice."""
+"""Trainer runtime of the port: the deterministic data stream, the
+data-parallel train step, the coordinator and the elastic loop."""
 
-from edl_tpu_torch.runtime.data import ShardedDataIterator, synthetic_dataset
+from edl_tpu_torch.runtime.coordinator import ElasticPlan, LocalCoordinator
+from edl_tpu_torch.runtime.data import BatchStager, ShardedDataIterator, synthetic_dataset
+from edl_tpu_torch.runtime.elastic import ElasticTrainer, ResizeEvent, StepRecord
 from edl_tpu_torch.runtime.train import Trainer, TrainState
 
-__all__ = ["ShardedDataIterator", "TrainState", "Trainer", "synthetic_dataset"]
+__all__ = [
+    "BatchStager",
+    "ElasticPlan",
+    "ElasticTrainer",
+    "LocalCoordinator",
+    "ResizeEvent",
+    "ShardedDataIterator",
+    "StepRecord",
+    "TrainState",
+    "Trainer",
+    "synthetic_dataset",
+]

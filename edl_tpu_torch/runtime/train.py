@@ -16,12 +16,15 @@ CUDA graph of the step, for its launch overhead, is later work.)
 Unlike the JAX package's immutable ``TrainState`` pytree, the state is
 updated in place (``step`` returns the same object): the parameters,
 gradients and both Adam moments exist once, not twice, on the card.
+Its flat form, the counterpart of flattening the pytree, is
+``TrainState.leaves()``; ``Trainer.state_from_leaves`` builds a fresh
+state from such leaves (a checkpoint restore).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,6 +32,13 @@ from torch import nn
 
 from edl_tpu_torch import DeviceLike, generator, resolve_device
 from edl_tpu_torch.models.base import Batch, ModelDef, StateDict
+
+
+def leaf_template(params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Tensors with the shapes and dtypes of ``TrainState.leaves()`` for
+    these parameters (each parameter stands for its moments too)."""
+    step = torch.empty((), dtype=torch.float32, device="meta")
+    return list(params) + [x for p in params for x in (p, p, step)]
 
 
 @dataclass
@@ -40,6 +50,23 @@ class TrainState:
     step: int
     params: nn.Module
     opt_state: torch.optim.Optimizer
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The state as a flat list in a fixed order: the float32
+        parameters (``named_parameters`` order), then Adam's
+        ``exp_avg``, ``exp_avg_sq`` and ``step`` for each parameter.
+        Before the first step Adam holds no state; its leaves are then
+        the zeros (and step 0) Adam starts from.  The step counts are
+        the optimizer's own 0-d float32 host tensors."""
+        params = list(self.params.parameters())
+        out: List[torch.Tensor] = [p.detach() for p in params]
+        for p in params:
+            st = self.opt_state.state.get(p)
+            if st:
+                out += [st["exp_avg"], st["exp_avg_sq"], st["step"]]
+            else:
+                out += [torch.zeros_like(p), torch.zeros_like(p), torch.tensor(0.0)]
+        return out
 
 
 class Trainer:
@@ -88,6 +115,34 @@ class Trainer:
             params.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
         )
         return TrainState(step=0, params=params, opt_state=opt)
+
+    def state_from_leaves(
+        self, step: int, leaves: List[torch.Tensor], names: List[str]
+    ) -> TrainState:
+        """A fresh state (new module, new optimizer) at ``step`` from
+        tensors in ``TrainState.leaves()`` order, e.g. a restored
+        checkpoint's; ``names`` are the parameters' names in that
+        order.  The moments are adopted as given (float32 on this
+        trainer's device); the step counts go to the host, where
+        ``torch.optim.Adam`` keeps them."""
+        n = len(names)
+        if len(leaves) != 4 * n:
+            raise ValueError(f"{len(leaves)} leaves for {n} parameters (want {4 * n})")
+        state = self.init_state(dict(zip(names, leaves[:n])))
+        steps = torch.stack([leaves[n + 3 * i + 2].reshape(()) for i in range(n)])
+        steps = steps.to("cpu", torch.float32)
+        sd = state.opt_state.state_dict()
+        sd["state"] = {
+            i: {
+                "step": steps[i].clone(),
+                "exp_avg": leaves[n + 3 * i],
+                "exp_avg_sq": leaves[n + 3 * i + 1],
+            }
+            for i in range(n)
+        }
+        state.opt_state.load_state_dict(sd)
+        state.step = int(step)
+        return state
 
     def step_generator(self, step: int) -> torch.Generator:
         """The generator handed to the loss at ``step``: a pure function
@@ -138,4 +193,4 @@ class Trainer:
             return self.model.loss_fn(state.params, batch, generator(0, self.device.type))[0]
 
 
-__all__ = ["TrainState", "Trainer"]
+__all__ = ["TrainState", "Trainer", "leaf_template"]

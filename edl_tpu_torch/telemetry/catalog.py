@@ -117,4 +117,178 @@ CATALOG = {
         ),
         "labels": (),
     },
+    # -- the elastic training runtime (ElasticTrainer, stager, ledger) -------
+    "edl_steps_total": {
+        "type": "counter",
+        "help": "Completed train steps (replayed steps count again).",
+        "labels": (),
+    },
+    "edl_step_seconds": {
+        "type": "histogram",
+        "help": "Wall-clock seconds per train step.",
+        "labels": (),
+    },
+    "edl_pipeline_depth": {
+        "type": "gauge",
+        "help": "Configured steady-state pipeline depth (max in-flight "
+        "steps; 0 = synchronous per-step host<->device sync).",
+        "labels": (),
+    },
+    "edl_batch_stage_seconds": {
+        "type": "histogram",
+        "help": "Seconds to assemble one global batch on the host and "
+        "place it on device (the work the pipeline's background "
+        "stager overlaps with compute).",
+        "labels": (),
+    },
+    "edl_device_wait_seconds": {
+        "type": "histogram",
+        "help": "Seconds the host blocked waiting on a step's device "
+        "metrics at harvest (the lag-deferred loss fetch).",
+        "labels": (),
+    },
+    "edl_resizes_total": {
+        "type": "counter",
+        "help": "Resize barriers completed, by gracefulness and how "
+        "state was restored.",
+        "labels": ("graceful", "source"),
+    },
+    "edl_resize_seconds": {
+        "type": "histogram",
+        "help": "End-to-end resize-window seconds.",
+        "labels": (),
+    },
+    "edl_resize_phase_seconds": {
+        "type": "histogram",
+        "help": "Per-phase resize-window seconds (flush / "
+        "world_formation / restore / flush_bg ... — the "
+        "ResizeEvent.phase_seconds keys).",
+        "labels": ("phase",),
+    },
+    "edl_replayed_steps_total": {
+        "type": "counter",
+        "help": "Steps re-run after a non-graceful resize fell back to "
+        "the last interval checkpoint.",
+        "labels": (),
+    },
+    "edl_world_breaks_total": {
+        "type": "counter",
+        "help": "Live process groups abandoned after a peer died "
+        "mid-collective.",
+        "labels": (),
+    },
+    # -- host-DRAM checkpoints and the restore transfer ----------------------
+    "edl_checkpoint_saves_total": {
+        "type": "counter",
+        "help": "Checkpoint saves by kind (async interval save vs "
+        "synchronous resize flush).",
+        "labels": ("kind",),
+    },
+    "edl_checkpoint_bytes_total": {
+        "type": "counter",
+        "help": "Bytes captured into host-DRAM checkpoints.",
+        "labels": ("kind",),
+    },
+    "edl_checkpoint_save_seconds": {
+        "type": "histogram",
+        "help": "Seconds to materialize a checkpoint (async save "
+        "thread / flush device-to-host phase).",
+        "labels": ("kind",),
+    },
+    "edl_transfer_bytes_sent_total": {
+        "type": "counter",
+        "help": "Restore-transfer bytes this process sent.",
+        "labels": (),
+    },
+    "edl_transfer_bytes_received_total": {
+        "type": "counter",
+        "help": "Restore-transfer bytes this process received.",
+        "labels": (),
+    },
+    "edl_transfer_chunks_total": {
+        "type": "counter",
+        "help": "Restore-transfer chunks received.",
+        "labels": (),
+    },
+    "edl_transfer_leaves_skipped_total": {
+        "type": "counter",
+        "help": "Leaves skipped because local bytes already matched "
+        "the source digest (the delta-restore win).",
+        "labels": (),
+    },
+    "edl_transfer_seconds": {
+        "type": "histogram",
+        "help": "Restore-transfer engine seconds (agreement + wire).",
+        "labels": (),
+    },
+    # -- coordinator client retries ------------------------------------------
+    "edl_retry_attempts_total": {
+        "type": "counter",
+        "help": "Transient failures absorbed by RetryPolicy (one per "
+        "failed attempt that was retried).",
+        "labels": ("op",),
+    },
+    "edl_retry_giveups_total": {
+        "type": "counter",
+        "help": "RetryPolicy exhaustions (GiveUpError raised).",
+        "labels": ("op",),
+    },
+    # -- data-plane step agreement (step bus, watchdog) ----------------------
+    "edl_consensus_words_total": {
+        "type": "counter",
+        "help": "Step-bus control words harvested (one per train step "
+        "on multi-member worlds).",
+        "labels": (),
+    },
+    "edl_consensus_votes_total": {
+        "type": "counter",
+        "help": "Stop votes this member cast on the step bus (one per "
+        "observed retarget).",
+        "labels": (),
+    },
+    "edl_consensus_stop_step": {
+        "type": "gauge",
+        "help": "Last data-plane-agreed stop step (the boundary every "
+        "member leaves the old world at).",
+        "labels": (),
+    },
+    "edl_consensus_step_skew_buckets": {
+        "type": "gauge",
+        "help": "Timing-lane bucket spread between the slowest and "
+        "fastest member in the last harvested word (log2 buckets).",
+        "labels": (),
+    },
+    "edl_consensus_stragglers_total": {
+        "type": "counter",
+        "help": "Words where one member's timing bucket exceeded the "
+        "fastest by the straggler spread, by process rank.",
+        "labels": ("rank",),
+    },
+    "edl_consensus_watchdog_trips_total": {
+        "type": "counter",
+        "help": "Collective-watchdog deadline expiries (wedged "
+        "step/control futures buried via broken-world recovery).",
+        "labels": (),
+    },
+    "edl_consensus_quiesce_seconds": {
+        "type": "histogram",
+        "help": "Seconds from observing a retarget to quiescing at the "
+        "agreed stop step (drain complete, ready to leave the world).",
+        "labels": (),
+    },
+    # -- goodput ledger -------------------------------------------------------
+    "edl_goodput_seconds_total": {
+        "type": "counter",
+        "help": "Wall-clock seconds this process spent in each "
+        "training state (stepping / staging_stalled / resizing[:phase] "
+        "/ holding / replaying / broken) — the honest decomposition "
+        "behind the goodput fraction the autoscaler reads back.",
+        "labels": ("state",),
+    },
+    "edl_goodput_frac": {
+        "type": "gauge",
+        "help": "Fraction of attributed wall-clock this process spent "
+        "actually stepping (stepping / total ledger seconds).",
+        "labels": (),
+    },
 }

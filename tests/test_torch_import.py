@@ -1,6 +1,7 @@
 """The port stands alone: it imports with JAX and the JAX package
 blocked, none of its files (nor ``chip_smoke.py``) imports them, and
-its entry points ask for CUDA unless told otherwise."""
+its entry points ask for CUDA unless told otherwise.  Also: the elastic
+loop's pipeline reads the device only at its sanctioned sync points."""
 
 import ast
 import os
@@ -8,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +32,9 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'edl_tpu_torch.serving.server' in names, names\n"
+        "import edl_tpu_torch.runtime.elastic, edl_tpu_torch.launcher\n"
+        "import edl_tpu_torch.checkpoint.hostdram, edl_tpu_torch.checkpoint.transfer\n"
+        "import edl_tpu_torch.consensus\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -61,14 +66,23 @@ def test_no_port_file_imports_jax_flax_optax_or_edl_tpu():
 def test_entry_points_default_to_cuda(monkeypatch):
     """Given no device, entry points ask for CUDA; where it is absent
     they raise rather than run on the CPU."""
-    from edl_tpu_torch import resolve_device
+    from edl_tpu_torch import launcher, resolve_device
+    from edl_tpu_torch.checkpoint import HostCheckpoint, HostDRAMStore
     from edl_tpu_torch.models import get_model
-    from edl_tpu_torch.runtime import Trainer
+    from edl_tpu_torch.runtime import (
+        BatchStager,
+        ElasticTrainer,
+        LocalCoordinator,
+        ShardedDataIterator,
+        Trainer,
+    )
     from edl_tpu_torch.serving import DecodeEngine, InferenceEngine, KVBlockPool
     from edl_tpu_torch.serving.server import build_replica
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = get_model("transformer_lm", tiny=True)
+    it = ShardedDataIterator({"x": np.zeros((8, 1), np.float32)}, 8)
+    ckpt = HostCheckpoint(step=0, generation=0, leaves=[np.zeros(1, np.float32)])
     for make in (
         resolve_device,
         lambda: DecodeEngine(model),
@@ -76,6 +90,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: KVBlockPool(1, 1, 16, 2, 16, torch.bfloat16),
         lambda: build_replica("transformer_lm", tiny=True),
         lambda: Trainer(model),
+        lambda: ElasticTrainer(model, it, LocalCoordinator()),
+        lambda: HostDRAMStore().restore(ckpt),
+        lambda: BatchStager(it),
+        lambda: launcher.run("transformer_lm", steps=1, model_kwargs={"tiny": True}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
@@ -101,3 +119,52 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     )
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_elastic_run_fetches_only_at_sanctioned_sync_points(monkeypatch):
+    """Every host read of a tensor that the port's own code makes inside
+    ``ElasticTrainer.run`` (pipeline depth 2, 10 steps, interval saves
+    at 4 and 8) is the lagged harvest of one step's loss: no other
+    ``.item()``, ``float()``, ``int()``, ``bool()`` or ``tolist()``.  On
+    a CUDA tensor each of those would block the host on the device and
+    silently make the pipeline synchronous.  (Adam's reads of its own
+    host-side step counts are torch's, not the port's.)"""
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        ElasticTrainer,
+        LocalCoordinator,
+        ShardedDataIterator,
+        synthetic_dataset,
+    )
+
+    model = get_model("transformer_lm", tiny=True, dtype=torch.float32)
+    coord = LocalCoordinator()
+    coord.register("tr0")
+    it = ShardedDataIterator(synthetic_dataset(model.synth_batch, 64), 8)
+    et = ElasticTrainer(model, it, coord, device="cpu", checkpoint_interval=4)
+    et.run(1)  # the first resize (init) stays outside the counted window
+    calls = []
+
+    def counting(name):
+        real = getattr(torch.Tensor, name)
+
+        def wrapper(self, *a, **k):
+            caller = sys._getframe(1)
+            if caller.f_code.co_filename.startswith(str(PKG)):
+                frames, f = [], caller
+                while f is not None:
+                    frames.append(f.f_code.co_name)
+                    f = f.f_back
+                calls.append((name, frames))
+            return real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapper)
+
+    for name in ("item", "__float__", "__int__", "__bool__", "tolist"):
+        counting(name)
+    et.run(10)
+    monkeypatch.undo()
+    assert [r.step for r in et.history] == list(range(10))
+    assert len(calls) == 9, calls  # steps 1..9, each harvested once
+    assert all(n == "item" and "_harvest_one" in frames for n, frames in calls), calls
+    assert et.pipeline_stats["max_in_flight"] == 2
