@@ -80,10 +80,32 @@ runtime on the card and exits non-zero on the first failure.  Phases, in order:
    device-to-host GB/s, each resize's phase seconds, the replay and
    cold-start seconds, and steady-state step ms and device busy share
    at depth 2 and 0, with the card's name and power limit.
-8. **Kernels line** — one JSON object listing every ported kernel with
+8. **Serving replica** — the pod entry point, ``serve_run``, serving
+   what the port's trainer spills.  ``Trainer`` (the training phase's
+   configuration) with a ``HostDRAMStore`` spilling to a temp directory
+   spills step 2; ``serve_run(checkpoint_dir=..., coordinator_addr=...)``
+   (an in-process ``CoordinatorServer``) loads it, warms and registers.
+   Prefix traffic: one cold ``/generate``, then 7 concurrent, all
+   sharing a 1536-token prefix (96 blocks) with tails of 64-320 tokens,
+   32 new tokens each: every warm receipt reports 96 reused blocks, the
+   tokens equal the full-recompute greedy (``_recompute_check``), and
+   afterwards no block is owned and at least 96 sit cached.
+   Interference: 4 short prompts decode 64 tokens, a 1900-token prompt
+   arrives after 8 of theirs, in the replica's chunked posture and in a
+   ``chunked_prefill=False`` batcher on the same engine (12 ``flash_fwd``
+   a prefill; 0 in the chunked posture): the short sequences'
+   inter-token p95 while the long one prefills, its TTFT, and its first
+   token the same in both.  Hot swap: 2 more steps spill step 4;
+   ``/healthz`` reports it, and the next request reuses 0 blocks and
+   equals the recompute on the step-4 weights.  Drain: ``POST /drain``
+   with 2 requests in flight; both finish, a later ``/generate`` is 503
+   with Retry-After, no block is owned, and the replica has left the
+   coordinator's members.  Each part's launch counts are zeroed just
+   before it and read just after.
+9. **Kernels line** — one JSON object listing every ported kernel with
    its launches on the main path, error, times, bound, the shape timed,
    the achieved TFLOP/s and the share of the bound.
-9. **Last line** — ``{"ok": true, "device": {...}}``.
+10. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -94,6 +116,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -177,6 +200,21 @@ ELASTIC_KILL_AT = 9
 ELASTIC_TIMED_STEPS = 8
 ELASTIC_PROFILE_STEPS = 4
 LAUNCHER_STEPS = 4
+#: phase 8, the serving replica: the trainer spills step 2 and then step
+#: 4; every prompt of the prefix traffic starts with one shared prefix of
+#: 96 blocks of 16 tokens, then a tail of its own (the first, cold
+#: request's tail 64 tokens, the 7 concurrent ones' 128-320)
+REPLICA_SPILL_STEPS = (2, 4)
+REPLICA_PREFIX_BLOCKS = 96
+REPLICA_COLD_TAIL = 64
+REPLICA_WARM_TAILS = (128, 160, 192, 224, 256, 288, 320)
+#: interference: four short prompts decode 64 tokens each; a 1900-token
+#: prompt arrives once each has 8 (bench_lib/serving.py:602's shape)
+REPLICA_SHORT = (24, 40, 56, 72)
+REPLICA_SHORT_NEW = 64
+REPLICA_LONG = 1900
+REPLICA_LONG_AFTER = 8
+REPLICA_DRAIN_NEW = 64
 
 #: the first (WMMA) versions' times on the H100 (NVIDIA H100 80GB HBM3,
 #: 700 W; PERF.md section 6): B1 and B3 at [1, 32768, 12, 64], B2 at
@@ -1651,6 +1689,395 @@ def phase_elastic(card: str):
     return out
 
 
+# -- phase 8 --------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _generate_plain(base, prompt, new_tokens, out, key):
+    """One non-streaming /generate; its reply (or the failure) in
+    ``out[key]``."""
+    body = {"inputs": {"tokens": prompt.tolist()}, "max_new_tokens": new_tokens}
+    t0 = time.perf_counter()
+    try:
+        with _post(base + "/generate", body) as r:
+            out[key] = {"status": r.status, **json.loads(r.read()),
+                        "wall_s": time.perf_counter() - t0}
+    except Exception as e:  # recorded, then failed on by the caller
+        out[key] = {"status": getattr(e, "code", None), "error": repr(e)}
+
+
+def _replies_ok(out, keys, new_tokens, what):
+    for k in keys:
+        res = out.get(k)
+        if res is None or res.get("status") != 200 or "error" in res:
+            fail(f"{what}: request {k} failed: {res}")
+        if len(res["tokens"]) != new_tokens:
+            fail(f"{what}: request {k} returned {len(res['tokens'])} tokens")
+
+
+def _train_and_spill(trainer, state, it, store, upto):
+    """Train to step ``upto``, then save and wait for the spill: each
+    step's launches zeroed before it and checked after.  Returns the
+    state and the seconds the spill took to land."""
+    import torch
+
+    want = {"flash_fwd": 12, "flash_bwd": 12, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    while state.step < upto:
+        batch = it.device_batch(state.step, "cuda")
+        torch.cuda.synchronize()
+        _reset_launches()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        got = _all_launches()
+        if got != want:
+            fail(f"replica's trainer: step {state.step - 1} launched {got}, want {want}")
+        if not np.isfinite(metrics["loss"].item()):
+            fail(f"replica's trainer: step {state.step - 1} loss is not finite")
+    t0 = time.perf_counter()
+    store.save_async(state)
+    store.wait()
+    return state, time.perf_counter() - t0
+
+
+def _interference(engine, gen, prompts, long_prompt, chunk_times):
+    """Four short sequences decode; the long prompt is submitted once
+    each has emitted REPLICA_LONG_AFTER tokens.  Returns the short
+    sequences' token gaps that overlap the long prompt's prefill (from
+    its submission to its first token: in the monolithic posture the
+    gap that spans the prefill ends after it), its TTFT, its first
+    token, and the launches of the run."""
+    import torch
+
+    times = {i: [] for i in range(len(prompts))}
+    long_first = {}
+    _reset_launches()
+    torch.cuda.synchronize()
+    short = [
+        gen.submit_generate({"tokens": p.tolist()}, max_new_tokens=REPLICA_SHORT_NEW,
+                            on_event=(lambda i: lambda ev: "token" in ev
+                                      and times[i].append(time.monotonic()))(i))
+        for i, p in enumerate(prompts)
+    ]
+    deadline = time.monotonic() + 120
+    while min(len(v) for v in times.values()) < REPLICA_LONG_AFTER:
+        if time.monotonic() > deadline:
+            fail("interference: the short sequences did not start decoding")
+        time.sleep(0.001)
+    n_chunk_calls = len(chunk_times)
+    t_submit = time.monotonic()
+    lt = gen.submit_generate(
+        {"tokens": long_prompt.tolist()}, max_new_tokens=2,
+        on_event=lambda ev: "token" in ev and long_first.setdefault("t", time.monotonic()))
+    toks, meta = lt.result(timeout=300)
+    for t in short:
+        if len(t.result(timeout=300)[0]) != REPLICA_SHORT_NEW:
+            fail("interference: a short sequence was cut short")
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    t_first = long_first["t"]
+    gaps = [b - a for v in times.values() for a, b in zip(v, v[1:]) if b > t_submit and a < t_first]
+    return {
+        "long_ttft_ms": (t_first - t_submit) * 1e3,
+        "long_first_token": toks[0],
+        "long_prefill_calls": meta["prefill_chunks"],
+        "gaps_during_prefill": len(gaps),
+        "intertoken_p95_ms": float(np.percentile(gaps, 95)) * 1e3 if gaps else None,
+        "intertoken_max_ms": max(gaps) * 1e3 if gaps else None,
+        "chunk_calls": len(chunk_times) - n_chunk_calls,
+        "launches": launches,
+    }
+
+
+def _served_weights_check(engine, state, what):
+    """Every tensor the replica serves equals the trainer's parameter of
+    the same name cast to the serving dtype, bit for bit, and the engine
+    serves the trainer's step: the spill's leaves mapped, copied to the
+    card and cast as training left them."""
+    import torch
+
+    served = dict(engine.current_weights().params.named_parameters())
+    trained = dict(state.params.named_parameters())
+    if set(served) != set(trained):
+        fail(f"{what}: served parameters {sorted(set(served) ^ set(trained))} differ "
+             "from the trainer's")
+    if engine.weights_step != state.step:
+        fail(f"{what}: the replica serves step {engine.weights_step}, the trainer is at "
+             f"step {state.step}")
+    for name, p in trained.items():
+        s = served[name]
+        if s.device.type != "cuda" or not torch.equal(s, p.detach().to(s.dtype)):
+            fail(f"{what}: served {name} ({s.dtype}, {s.device}) is not the trainer's "
+                 f"parameter cast to {s.dtype}")
+    return {"tensors": len(trained), "dtypes": sorted({str(t.dtype) for t in served.values()}),
+            "step": engine.weights_step}
+
+
+def _swap_breakdown(engine, spill_dir, step):
+    """The parts of a spill-directory swap, timed one by one on a fresh
+    store: the read of the spill (every leaf, the optimizer's too), the
+    CRC of its bytes, and the staging of the parameters on the card."""
+    import torch
+
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+
+    names, template = engine.leaf_template()
+    t0 = time.perf_counter()
+    ckpt = HostDRAMStore(spill_dir=spill_dir).load_from_disk(template, step=step)
+    t1 = time.perf_counter()
+    ckpt._leaf_crcs()  # the CRC pass that load_from_disk ran, alone
+    t2 = time.perf_counter()
+    params = engine._stage_params(ckpt)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del params
+    read_and_crc = t1 - t0
+    return {"read_and_crc_s": read_and_crc, "crc_s": t2 - t1, "read_s": read_and_crc - (t2 - t1),
+            "stage_s": t3 - t2, "leaf_bytes": sum(x.nbytes for x in ckpt.leaves),
+            "param_bytes": sum(x.nbytes for x in ckpt.leaves[:len(names)])}
+
+
+def phase_serving_replica(card: str):
+    """The serving replica's normal path at full width: serve_run over a
+    spill directory the port's trainer writes, with a coordinator."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        LocalCoordinator,
+        ShardedDataIterator,
+        Trainer,
+        synthetic_dataset,
+    )
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+    from edl_tpu_torch.serving import TokenContinuousBatcher
+    from edl_tpu_torch.serving.server import serve_run
+
+    model = get_model("transformer_lm")  # full width: bf16 compute, f32 params
+    vocab = model.decode.vocab_size
+    layers = model.decode.layers
+    out = {"card": card, "model": "transformer_lm", "train_batch": TRAIN_BATCH,
+           "seq_len": model.tokens_per_example}
+    tmp = tempfile.mkdtemp(prefix="edl-replica-")
+    coord = LocalCoordinator(target_world=1, max_world=4)
+    cserver = CoordinatorServer(coord, host="127.0.0.1", port=0).start()
+    replica = None
+    try:
+        # 1. train and spill step 2
+        trainer = Trainer(model, lr=TRAIN_LR, device="cuda", seed=SEED)
+        state = trainer.init_state()
+        it = ShardedDataIterator(
+            synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH,
+            seed=SEED)
+        tstore = HostDRAMStore(spill_dir=tmp)
+        state, out["spill_s"] = _train_and_spill(trainer, state, it, tstore, REPLICA_SPILL_STEPS[0])
+
+        # 2. start the replica: load step 2, warm, register
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replica = serve_run(entrypoint="transformer_lm", checkpoint_dir=tmp,
+                            coordinator_addr=f"127.0.0.1:{cserver.port}",
+                            port=_free_port(), host="127.0.0.1", device="cuda",
+                            replica_id="serve-0")
+        out["load_s"] = time.perf_counter() - t0
+        engine, gen = replica.engine, replica.gen_batcher
+        base = f"http://127.0.0.1:{replica.server.port}"
+        health = _get(base + "/healthz")
+        if not (replica.loaded and health["weights_step"] == REPLICA_SPILL_STEPS[0]
+                and health["warm"] and coord.members() == ["serve-0"]):
+            fail(f"the replica did not load step {REPLICA_SPILL_STEPS[0]}, warm and "
+                 f"register: healthz {health}, members {coord.members()}")
+        if not (gen.chunked_prefill and gen.prefix is not None):
+            fail("the replica's batcher is not in the chunked posture with the prefix cache")
+        out["weights_loaded"] = _served_weights_check(engine, state, "after the load")
+        out["pool"] = {"kv_pool_bytes": engine.pool.nbytes(), "blocks": engine.pool.num_blocks,
+                       "max_chunk_tokens": engine.max_chunk_tokens,
+                       "prefill_token_budget": gen.prefill_token_budget}
+        chunk_times = []
+        real_chunk = engine.prefill_chunk
+
+        def timed_chunk(*a):
+            t = time.perf_counter()
+            r = real_chunk(*a)
+            chunk_times.append(time.perf_counter() - t)
+            return r
+
+        engine.prefill_chunk = timed_chunk
+
+        # 3. prefix traffic: one cold request, then 7 concurrent warm ones
+        rng = np.random.RandomState(SEED + 8)
+        bt = engine.block_tokens
+        prefix = rng.randint(3, vocab, size=REPLICA_PREFIX_BLOCKS * bt).astype(np.int32)
+        tails = (REPLICA_COLD_TAIL,) + REPLICA_WARM_TAILS
+        prompts = [np.concatenate([prefix, rng.randint(3, vocab, size=n).astype(np.int32)])
+                   for n in tails]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        replies = {}
+        t0 = time.perf_counter()
+        _generate_plain(base, prompts[0], SERVE_NEW_TOKENS, replies, 0)
+        threads = [threading.Thread(target=_generate_plain,
+                                    args=(base, p, SERVE_NEW_TOKENS, replies, i + 1))
+                   for i, p in enumerate(prompts[1:])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        out["prefix_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        _replies_ok(replies, range(len(prompts)), SERVE_NEW_TOKENS, "prefix traffic")
+        reused = [replies[i]["reused_blocks"] for i in range(len(prompts))]
+        if reused != [0] + [REPLICA_PREFIX_BLOCKS] * len(REPLICA_WARM_TAILS):
+            fail(f"prefix traffic: reused blocks {reused}, want 0 then "
+                 f"{REPLICA_PREFIX_BLOCKS} for each warm request")
+        if any(launches.values()):
+            fail(f"prefix traffic (chunked posture, plain attention) launched {launches}")
+        served = [replies[i]["tokens"] for i in range(len(prompts))]
+        pool = engine.pool
+        if pool.used_blocks != 0 or pool.cached_blocks < REPLICA_PREFIX_BLOCKS:
+            fail(f"after prefix traffic: {pool.used_blocks} blocks owned, "
+                 f"{pool.cached_blocks} cached (want 0 and >= {REPLICA_PREFIX_BLOCKS})")
+        ttft = [replies[i]["ttft_ms"] for i in range(len(prompts))]
+        out["prefix"] = {
+            "prompt_tokens": [len(p) for p in prompts], "new_tokens": SERVE_NEW_TOKENS,
+            "wall_s": wall, "tokens_per_s": sum(len(t) for t in served) / wall,
+            "ttft_cold_ms": ttft[0], "ttft_warm_ms": ttft[1:],
+            "ttft_warm_p50_ms": float(np.median(ttft[1:])),
+            "prefill_chunks": [replies[i]["prefill_chunks"] for i in range(len(prompts))],
+            "reused_blocks": reused, "launches": launches,
+            "cached_blocks_after": pool.cached_blocks,
+            "recompute": _recompute_check(engine, prompts, served),
+        }
+
+        # 4. interference, both postures, on the same engine
+        long_prompt = rng.randint(3, vocab, size=REPLICA_LONG).astype(np.int32)
+        shorts = [rng.randint(3, vocab, size=n).astype(np.int32) for n in REPLICA_SHORT]
+        chunk_times.clear()
+        chunked = _interference(engine, gen, shorts, long_prompt, chunk_times)
+        chunk_ms = [t * 1e3 for t in chunk_times]
+        mono_gen = TokenContinuousBatcher(engine, chunked_prefill=False, refresh=False).start()
+        try:
+            mono = _interference(engine, mono_gen, shorts, long_prompt, chunk_times)
+        finally:
+            mono_gen.stop()
+        if any(chunked["launches"].values()):
+            fail(f"interference, chunked posture: launched {chunked['launches']}, want none")
+        prefills = len(REPLICA_SHORT) + 1
+        want_mono = dict.fromkeys(chunked["launches"], 0)
+        want_mono["flash_fwd"] = layers * prefills
+        if mono["launches"] != want_mono:
+            fail(f"interference, monolithic posture: launched {mono['launches']}, want "
+                 f"{want_mono} ({layers} flash_fwd a prefill, {prefills} prefills)")
+        first_check = {"chunked": chunked["long_first_token"],
+                       "monolithic": mono["long_first_token"]}
+        if chunked["long_first_token"] != mono["long_first_token"]:
+            # held to the margin rule of the recompute check: a near tie
+            # may go either way, a clear winner may not
+            check = _recompute_check(engine, [long_prompt], [[mono["long_first_token"]]])
+            first_check["near_tie"] = check["near_ties"] == 1
+        out["interference"] = {"short_prompts": list(REPLICA_SHORT), "long_prompt": REPLICA_LONG,
+                               "chunked": chunked, "monolithic": mono,
+                               "first_token": first_check,
+                               "chunk_call_ms_mean": float(np.mean(chunk_ms)),
+                               "chunk_call_ms_p50": float(np.median(chunk_ms)),
+                               "chunk_calls_timed": len(chunk_ms)}
+        if mono["long_first_token"] != chunked["long_first_token"] and not first_check["near_tie"]:
+            fail(f"the long prompt's first token differs between postures: {first_check}")
+
+        # 5. hot swap: two more steps spill step 4
+        state, out["swap_spill_s"] = _train_and_spill(trainer, state, it, tstore,
+                                                      REPLICA_SPILL_STEPS[1])
+        t_spilled = time.perf_counter()
+        deadline = t_spilled + engine.spill_poll_interval + 60
+        while _get(base + "/healthz")["weights_step"] != REPLICA_SPILL_STEPS[1]:
+            if time.perf_counter() > deadline:
+                fail(f"the replica did not swap to step {REPLICA_SPILL_STEPS[1]}")
+            time.sleep(0.02)
+        out["swap_seen_s"] = time.perf_counter() - t_spilled
+        _reset_launches()
+        after = {}
+        _generate_plain(base, prompts[0], SERVE_NEW_TOKENS, after, 0)
+        out["swap_s"] = time.perf_counter() - t_spilled
+        _replies_ok(after, [0], SERVE_NEW_TOKENS, "after the swap")
+        if after[0]["weights_step"] != REPLICA_SPILL_STEPS[1] or after[0]["reused_blocks"] != 0:
+            fail(f"after the swap: weights step {after[0]['weights_step']}, reused blocks "
+                 f"{after[0]['reused_blocks']} (want {REPLICA_SPILL_STEPS[1]} and 0)")
+        if any(_all_launches().values()):
+            fail(f"the request after the swap launched {_all_launches()}")
+        out["weights_swapped"] = _served_weights_check(engine, state, "after the swap")
+        out["swap_split"] = _swap_breakdown(engine, tmp, REPLICA_SPILL_STEPS[1])
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["swap"] = {"recompute": _recompute_check(engine, [prompts[0]], [after[0]["tokens"]]),
+                       "hot_swaps": engine._m_swaps.value(),
+                       "rejected": engine._m_swap_rejected.value(),
+                       "events": list(engine.swap_events)}
+
+        # 6. drain with two requests in flight
+        inflight = {}
+        threads = [threading.Thread(target=_generate_plain,
+                                    args=(base, shorts[i], REPLICA_DRAIN_NEW, inflight, i))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 60
+        while gen.active_count < 2:
+            if time.monotonic() > deadline:
+                fail("drain: the two requests never started decoding")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        with _post(base + "/drain", {"budget_ms": 60000}) as r:
+            ack = json.loads(r.read())
+        out["drain_s"] = time.perf_counter() - t0
+        for th in threads:
+            th.join(timeout=120)
+        _replies_ok(inflight, [0, 1], REPLICA_DRAIN_NEW, "in flight at the drain")
+        if not (ack["drained"] and ack["in_flight"] == 0):
+            fail(f"drain ack {ack}")
+        try:
+            _post(base + "/generate", {"inputs": {"tokens": [5, 6, 7]}, "max_new_tokens": 2})
+            fail("a /generate after the drain was answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 503 or float(e.headers.get("Retry-After", 0)) <= 0:
+                fail(f"a /generate after the drain got {e.code}, Retry-After "
+                     f"{e.headers.get('Retry-After')} (want 503 with one)")
+        if engine.pool.used_blocks != 0 or "serve-0" in coord.members():
+            fail(f"after the drain: {engine.pool.used_blocks} blocks owned, members "
+                 f"{coord.members()}")
+        out["drain"] = {"ack": ack, "members_after": coord.members()}
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        if replica is not None:
+            replica.stop()
+        cserver.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"serving_replica": out})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -1673,6 +2100,7 @@ def main() -> int:
     training = phase_training()
     long_training = phase_longcontext_training()
     phase_elastic(card)
+    phase_serving_replica(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

@@ -41,7 +41,12 @@ def env_config() -> dict:
     ``torch.distributed`` rendezvous), and keys of parts not ported yet:
     ``EDL_SHARD_ONLY`` (the checkpoint fabric), ``EDL_PARALLELISM``
     (mesh layouts), ``EDL_FLIGHT_RECORDER_FILE``, ``EDL_CHAOS_SPEC``,
-    ``EDL_TELEMETRY_INTERVAL`` and the serving and router pods' keys."""
+    ``EDL_TELEMETRY_INTERVAL``, the serving pod's
+    ``EDL_SERVE_DISPATCH_TIMEOUT`` (the dispatch watchdog) and the
+    router pod's ``EDL_ROUTE_*`` keys.  The serving pod's keys
+    (``serving.server.serve_run``) are ported, with
+    ``EDL_SERVE_DRAIN_MS``, the drain budget, which the JAX package
+    reads in ``serve_run`` itself."""
     e = os.environ
     return {
         "job_name": e.get("EDL_JOB_NAME", "local"),
@@ -70,6 +75,13 @@ def env_config() -> dict:
             else ""
         ),
         "history_file": e.get("EDL_HISTORY_FILE", ""),
+        # Serving-replica pod contract (serving.server.serve_run)
+        "serve_port": int(e.get("EDL_SERVE_PORT", "7180")),
+        "serve_max_batch": int(e.get("EDL_SERVE_MAX_BATCH", "64")),
+        "serve_queue_limit": int(e.get("EDL_SERVE_QUEUE_LIMIT", "256")),
+        "serve_deadline_ms": int(e.get("EDL_SERVE_DEADLINE_MS", "2000")),
+        # how long a drain lets in-flight work finish
+        "serve_drain_ms": int(e.get("EDL_SERVE_DRAIN_MS", "30000")),
         # collective-watchdog deadline override in seconds ("" = auto:
         # 120 s on multi-process worlds, disabled single-process)
         "collective_timeout": (

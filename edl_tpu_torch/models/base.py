@@ -37,6 +37,16 @@ class DecodeSpec:
       -> (ids[B], kpool, vpool)`` — one token of compute: write the
       token's K/V at position ``lengths[i]``, attend over the cache
       through the block table, return the next greedy id.
+    - ``chunk_fn(params, tokens[B,C], offsets[B], lengths[B], kpool,
+      vpool, tables) -> (ids[B], kpool, vpool)`` — chunked prefill: one
+      block-aligned prompt slice at the block-aligned cache offset
+      ``offsets[i]``; writes its K/V there and attends causally over
+      every position filled before it and itself, through the
+      (window-truncated) block table.  ``lengths`` is the count of
+      filled positions after the chunk; the returned id, read at
+      ``lengths - 1``, is the first generated token when the chunk is
+      the prompt's last (it must equal ``prefill_fn``'s).  None: the
+      family serves monolithic prefill only.
 
     The JAX functions are pure (pools in, pools out, donated by the
     engine).  Here the pools are written in place and the same tensors
@@ -55,6 +65,7 @@ class DecodeSpec:
     prefill_fn: Callable[..., Tuple[Any, Any, Any]]
     decode_fn: Callable[..., Tuple[Any, Any, Any]]
     vocab_size: int
+    chunk_fn: Optional[Callable[..., Tuple[Any, Any, Any]]] = None
 
 
 @dataclass(frozen=True)

@@ -21,10 +21,9 @@ stay in range.  The free list lives host-side in
 
 Where the JAX functions return updated pools (the engine donates the
 buffers), these write into the pool IN PLACE (``index_put_``) and
-return the same tensors.  The paged attention is plain PyTorch, as in
-the JAX package (not a Pallas kernel there).  Chunked prefill
-(``write_chunk_kv``, ``paged_chunk_attention``) comes with the chunked
-scheduler.
+return the same tensors.  The paged attention — of a decode step and
+of a chunked-prefill slice (``paged_chunk_attention``) — is plain
+PyTorch, as in the JAX package (not a Pallas kernel there).
 """
 
 from __future__ import annotations
@@ -52,6 +51,50 @@ def write_prefill_kv(kpool_l, vpool_l, tables, k, v) -> Tuple[torch.Tensor, torc
     kpool_l[blocks] = k.reshape(b, nblk, bt, h, d).to(kpool_l.dtype)
     vpool_l[blocks] = v.reshape(b, nblk, bt, h, d).to(vpool_l.dtype)
     return kpool_l, vpool_l
+
+
+def write_chunk_kv(kpool_l, vpool_l, tables, offsets, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one prompt chunk's per-layer K/V ``[B, C, H, D]`` (in
+    place) at each row's block-aligned cache offset ``offsets[i]`` (the
+    positions earlier chunks filled).  ``C`` must be a multiple of
+    block_tokens: the chunk scheduler splits prompts at block
+    boundaries, and the final chunk pads to its bucket.  Returns the
+    pools."""
+    nb, bt, h, d = kpool_l.shape
+    b, c = k.shape[0], k.shape[1]
+    nblk = c // bt
+    idx = (offsets.long() // bt)[:, None] + torch.arange(nblk, device=k.device)[None, :]
+    blocks = tables.long().gather(1, idx)  # [B, nblk]
+    kpool_l[blocks] = k.reshape(b, nblk, bt, h, d).to(kpool_l.dtype)
+    vpool_l[blocks] = v.reshape(b, nblk, bt, h, d).to(vpool_l.dtype)
+    return kpool_l, vpool_l
+
+
+def paged_chunk_attention(q, kpool_l, vpool_l, tables, offsets) -> torch.Tensor:
+    """Chunked-prefill attention over the paged cache.
+
+    ``q``: ``[B, C, H, D]``, a prompt chunk at global positions
+    ``offsets[i] + c`` whose own K/V is already in the pool, so it
+    attends to itself and every earlier filled position.  Gathers each
+    row's window through its block table (the engine passes only the
+    blocks of the smallest prompt bucket covering the chunk, so the
+    work grows with the filled prefix, not the context), masks keys
+    past each query's global position, and returns ``[B, C, H, D]`` in
+    float32 (softmax in float32)."""
+    nb, bt, h, d = kpool_l.shape
+    b, mb = tables.shape
+    c = q.shape[1]
+    m = mb * bt
+    idx = tables.long()
+    k_g = kpool_l[idx].reshape(b, m, h, d)
+    v_g = vpool_l[idx].reshape(b, m, h, d)
+    scale = 1.0 / (d ** 0.5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_g.float()) * scale
+    qpos = offsets.long()[:, None] + torch.arange(c, device=q.device)[None, :]  # [B, C]
+    keep = torch.arange(m, device=q.device)[None, None, :] <= qpos[:, :, None]  # [B, C, m]
+    scores = scores.masked_fill(~keep[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v_g.float())
 
 
 def write_decode_kv(kpool_l, vpool_l, tables, lengths, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,26 +139,35 @@ class LayerKV:
 
     - True — monolithic prompt forward: attention stays the module's
       own causal path, K/V are written from position 0;
+    - ``"chunk"`` — one block-aligned prompt slice at the cache offsets
+      ``offsets``: K/V are written there, and attention runs over the
+      gathered window (``paged_chunk_attention``);
     - False — decode: one token per row at ``lengths``.
 
     Attention modules call two hooks: ``write(k, v)`` writes this
-    layer's new K/V into the pool, and ``attend(q)`` is the decode
-    phase's paged attention (``[B, 1, H, D]`` query -> ``[B, 1, H, D]``
-    float32)."""
+    layer's new K/V into the pool, and ``attend(q)`` is the paged
+    attention of the chunk and decode phases (``[B, T, H, D]`` query ->
+    ``[B, T, H, D]`` float32)."""
 
-    def __init__(self, kpool_l, vpool_l, tables, lengths, prefill: bool):
+    def __init__(self, kpool_l, vpool_l, tables, lengths, prefill, offsets=None):
         self.kpool_l = kpool_l
         self.vpool_l = vpool_l
         self.tables = tables
         self.lengths = lengths
-        self.prefill = bool(prefill)
+        self.mode = "chunk" if prefill == "chunk" else ("prefill" if prefill else "decode")
+        self.prefill = self.mode == "prefill"
+        self.offsets = offsets
 
     def write(self, k, v):
-        """k, v: ``[B, P, H, D]`` (prefill) or ``[B, 1, H, D]``
-        (decode)."""
-        if self.prefill:
+        """k, v: ``[B, P, H, D]`` (prefill), ``[B, C, H, D]`` (chunk) or
+        ``[B, 1, H, D]`` (decode)."""
+        if self.mode == "prefill":
             return write_prefill_kv(
                 self.kpool_l, self.vpool_l, self.tables, k, v
+            )
+        if self.mode == "chunk":
+            return write_chunk_kv(
+                self.kpool_l, self.vpool_l, self.tables, self.offsets, k, v
             )
         return write_decode_kv(
             self.kpool_l, self.vpool_l, self.tables, self.lengths,
@@ -123,6 +175,10 @@ class LayerKV:
         )
 
     def attend(self, q):
+        if self.mode == "chunk":
+            return paged_chunk_attention(
+                q, self.kpool_l, self.vpool_l, self.tables, self.offsets
+            )
         out = paged_decode_attention(
             q[:, 0], self.kpool_l, self.vpool_l, self.tables, self.lengths
         )
@@ -153,7 +209,9 @@ __all__ = [
     "LayerKV",
     "TRASH_BLOCK",
     "greedy_from_features",
+    "paged_chunk_attention",
     "paged_decode_attention",
+    "write_chunk_kv",
     "write_decode_kv",
     "write_prefill_kv",
 ]

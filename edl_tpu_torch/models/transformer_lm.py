@@ -81,7 +81,7 @@ class CausalSelfAttention(nn.Module):
         if kv is not None:
             # Incremental decode: this layer's K/V go into the paged
             # pool.  Prefill keeps the module's own causal attention;
-            # decode attends over the cache.
+            # a prefill chunk and decode attend over the cache.
             kv.write(k, v)
             out = fused_attention(q, k, v, causal=True) if kv.prefill else kv.attend(q)
         else:
@@ -153,18 +153,30 @@ class TransformerLM(nn.Module):
         forward over the prompt while writing every layer's K/V into
         the pool; decode takes ``tokens`` ``[B]`` (one token per row,
         at position ``lengths[i]``) and attends through the block
-        table.  Returns ``(features, kpool, vpool)``; the pools are
-        written in place."""
+        table.  The six-tuple ``(kpool, vpool, tables, lengths,
+        offsets, "chunk")`` is chunked prefill: ``tokens`` ``[B, C]``
+        is one block-aligned prompt slice at positions ``offsets[i] +
+        c``, written at its offset and attending causally over every
+        filled position.  Returns ``(features, kpool, vpool)``; the
+        pools are written in place."""
         if kv is not None:
-            kpool, vpool, tables, lengths, prefill = kv
-            if prefill:
+            offsets = None
+            if len(kv) == 6:
+                kpool, vpool, tables, lengths, offsets, prefill = kv
+            else:
+                kpool, vpool, tables, lengths, prefill = kv
+            if prefill == "chunk":
+                t = tokens.shape[1]
+                cpos = offsets.long()[:, None] + torch.arange(t, device=tokens.device)[None, :]
+                x = self.embed(tokens) + self.pos_embed[cpos]
+            elif prefill:
                 t = tokens.shape[1]
                 x = self.embed(tokens) + self.pos_embed[None, :t]
             else:
                 x = self.embed(tokens[:, None]) + self.pos_embed[lengths.long()][:, None]
             x = x.to(self.dtype)
             for i, layer in enumerate(self.layers):
-                x = layer(x, LayerKV(kpool[i], vpool[i], tables, lengths, prefill))
+                x = layer(x, LayerKV(kpool[i], vpool[i], tables, lengths, prefill, offsets))
             return self.ln_f(x.float()), kpool, vpool
         t = tokens.shape[1]
         x = (self.embed(tokens) + self.pos_embed[None, :t]).to(self.dtype)
@@ -256,8 +268,8 @@ def init_state_dict(vocab: int, d_model: int, d_ff: int, num_layers: int,
 
 def lm_decode_spec(heads: int, d_model: int, num_layers: int, L: int,
                    vocab: int, dtype) -> DecodeSpec:
-    """KV-cached prefill/decode pair for a ``TransformerLM`` (the
-    ``params`` argument is the bound module)."""
+    """KV-cached prefill, chunk and decode functions for a
+    ``TransformerLM`` (the ``params`` argument is the bound module)."""
 
     def prefill_fn(params, tokens, lengths, kpool, vpool, tables):
         feats, kp, vp = params(tokens, kv=(kpool, vpool, tables, lengths, True))
@@ -272,6 +284,19 @@ def lm_decode_spec(heads: int, d_model: int, num_layers: int, L: int,
         ids = greedy_from_features(feats, params.logit_weight(torch.bfloat16))
         return ids, kp, vp
 
+    def chunk_fn(params, tokens, offsets, lengths, kpool, vpool, tables):
+        # ``lengths`` counts the filled positions after this chunk, so
+        # on the prompt's final chunk the read lands on its last real
+        # position: the first generated token.
+        feats, kp, vp = params(
+            tokens, kv=(kpool, vpool, tables, lengths, offsets, "chunk")
+        )
+        last = (lengths.long() - 1 - offsets.long()).clamp(0, tokens.shape[1] - 1)
+        ids = greedy_from_features(
+            feats, params.logit_weight(torch.bfloat16), positions=last
+        )
+        return ids, kp, vp
+
     return DecodeSpec(
         layers=num_layers,
         heads=heads,
@@ -281,6 +306,7 @@ def lm_decode_spec(heads: int, d_model: int, num_layers: int, L: int,
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         vocab_size=vocab,
+        chunk_fn=chunk_fn,
     )
 
 

@@ -1,5 +1,6 @@
 """Continuous batchers: bounded queue, deadline-aware admission, bucket
-padding, backpressure (counterpart of ``edl_tpu/serving/batcher.py``).
+padding, backpressure, drain (counterpart of
+``edl_tpu/serving/batcher.py``).
 
 Orca-style continuous batching: the batch boundary is the scheduling
 boundary.  ``ContinuousBatcher`` schedules single-shot requests (the
@@ -10,10 +11,14 @@ leave the running batch at token boundaries.
 Admission is where backpressure lives: a full queue rejects at once
 with a retry-after hint (HTTP 429) instead of buffering without bound,
 and a request whose deadline passed while queued is expired, not
-computed.
+computed.  A draining replica rejects with ``DrainingError`` (HTTP 503:
+go elsewhere) while everything already admitted runs to its finish.
 
-Drain, chaos injection, chunked prefill, the prefix cache and live
-migration come with later slices.
+The hot-swap moment lives here too, between batches and at token
+boundaries (``engine.refresh()``): a dispatch in flight bound its
+weights when it started, so no output mixes weight generations.
+
+Chaos injection and live migration come with later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +45,18 @@ class QueueFullError(RuntimeError):
 
 class DeadlineExceededError(RuntimeError):
     """The request's deadline passed before it could be served."""
+
+
+class DrainingError(RuntimeError):
+    """Admission closed: the replica is draining.  Distinct from
+    ``QueueFullError`` on purpose: the HTTP front maps it to 503 +
+    Retry-After (go to another replica; this one is leaving), where a
+    full queue is 429 (back off and retry here)."""
+
+    def __init__(self, msg: str = "replica draining: admission closed; "
+                 "retry another replica", retry_after: float = 0.5):
+        super().__init__(msg)
+        self.retry_after = retry_after
 
 
 class Ticket:
@@ -92,6 +109,11 @@ class ContinuousBatcher:
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._stop = False
+        #: admission closed (drain): submit raises DrainingError while
+        #: queued and dispatching work runs to completion
+        self._draining = False
+        #: tickets the worker holds (popped, not yet resolved)
+        self._busy = 0
         self._thread: Optional[threading.Thread] = None
 
         from edl_tpu_torch import telemetry
@@ -135,14 +157,35 @@ class ContinuousBatcher:
         with self._cv:
             return len(self._queue)
 
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def in_flight(self) -> int:
+        """Requests admitted but not yet resolved: queued plus the batch
+        the worker holds.  A drain waits for it to reach 0."""
+        with self._cv:
+            return len(self._queue) + self._busy
+
+    def close_admission(self) -> None:
+        """Enter drain: every later ``submit`` raises DrainingError;
+        requests already admitted keep computing."""
+        with self._cv:
+            self._draining = True
+
     def submit(
         self,
         inputs: Dict[str, Any],
         deadline_s: Optional[float] = None,
     ) -> Ticket:
         """Admit one request (1..max_batch rows).  Raises
-        ``QueueFullError`` on backpressure and ``ValueError`` on a
-        schema mismatch — both before the request costs any compute."""
+        ``QueueFullError`` on backpressure, ``DrainingError`` once
+        admission closed for a drain, and ``ValueError`` on a schema
+        mismatch — all before the request costs any compute."""
+        if self._draining:
+            self._m_requests.inc(status="draining")
+            raise DrainingError()
         arrays, rows = self.engine.coerce_inputs(inputs)
         if rows < 1:
             raise ValueError("empty request (0 rows)")
@@ -156,6 +199,11 @@ class ContinuousBatcher:
         )
         ticket = Ticket(arrays, rows, time.monotonic() + budget)
         with self._cv:
+            if self._draining:
+                # Re-checked under the lock: a drain that read in_flight
+                # must not see it grow afterwards.
+                self._m_requests.inc(status="draining")
+                raise DrainingError()
             if len(self._queue) >= self.queue_limit:
                 self._m_requests.inc(status="rejected")
                 raise QueueFullError(
@@ -188,6 +236,7 @@ class ContinuousBatcher:
                 self._queue.popleft()
                 taken.append(t)
                 rows += t.rows
+            self._busy = len(taken)
             self._g_depth.set(len(self._queue))
         return taken
 
@@ -198,6 +247,12 @@ class ContinuousBatcher:
                     self._cv.wait(timeout=0.5)
                 if self._stop:
                     return
+            # The hot-swap moment: between batches.  A failure of the
+            # swap path costs the swap, never the worker.
+            try:
+                self.engine.refresh()
+            except Exception:
+                traceback.print_exc()
             batch = self._take_batch()
             if not batch:
                 continue
@@ -212,6 +267,8 @@ class ContinuousBatcher:
                 for t in batch:
                     self._m_requests.inc(status="error")
                     t._reject(e)
+                with self._cv:
+                    self._busy = 0
                 continue
             self._m_batches.inc()
             self._m_examples.inc(rows)
@@ -224,6 +281,8 @@ class ContinuousBatcher:
                 self._m_requests.inc(status="ok")
                 self._m_latency.observe(now - t.enqueued)
                 t._resolve(sl, dict(meta))
+            with self._cv:
+                self._busy = 0
 
 
 # -- per-token continuous batching -------------------------------------------
@@ -244,7 +303,8 @@ class GenerateTicket:
     __slots__ = (
         "prompt", "max_new", "deadline", "eos_id", "enqueued", "on_event",
         "blocks", "table", "length", "last_token", "tokens", "restarts",
-        "last_time", "first_time", "_done", "_result", "_error",
+        "last_time", "prefilled", "chunks", "reused_blocks", "first_time",
+        "_done", "_result", "_error",
     )
 
     def __init__(
@@ -270,8 +330,17 @@ class GenerateTicket:
         self.tokens: List[int] = []
         self.restarts = 0
         self.last_time = 0.0
+        #: prompt positions already written by prefill chunks (a weight
+        #: swap resets it to 0)
+        self.prefilled = 0
+        #: prefill calls this request paid (monolithic: one per
+        #: prefill; chunked: one per chunk), over restarts too
+        self.chunks = 0
+        #: KV blocks claimed from the prefix cache at admission (a
+        #: restart resets it with ``prefilled``)
+        self.reused_blocks = 0
         #: wall time of the FIRST ever emitted token (a restart never
-        #: moves it)
+        #: moves it): TTFT spans enqueue to it, over every chunk
         self.first_time: Optional[float] = None
         self._done = threading.Event()
         self._result = None
@@ -308,26 +377,38 @@ class TokenContinuousBatcher:
 
     Each worker iteration:
 
-    1. **weights check** — at the token boundary only.  If a new weight
-       generation was installed, every in-flight sequence re-prefills
-       against it (its partial output is void, streamed as a restart
-       event): one sequence never mixes weight generations.
-    2. **join** — queued requests are admitted while decode slots and
-       KV blocks last; each pays one monolithic bucketed prefill, which
-       emits its first token (the TTFT moment).
+    1. **weights check** — at the token boundary only.  With
+       ``refresh`` the batcher asks the engine for a newer verified
+       checkpoint (also while idle, so an idle replica picks up new
+       weights too).  A new weight generation, or a lost cache (a new
+       ``cache_epoch``), re-prefills every in-flight sequence: its
+       partial output is void (streamed as a restart event), and one
+       sequence never mixes weight generations.  The prefix index is
+       rekeyed first, so nothing filled under the old weights is
+       claimed again.
+    2. **join** — queued requests are admitted while decode slots last.
+       With **chunked prefill** (the default when the model declares a
+       ``chunk_fn``) an admitted request enters a FIFO of partly
+       prefilled sequences, after claiming from the prefix cache any
+       published run its prompt starts with; its prompt is fed through
+       chunks under a per-iteration token budget, at most
+       ``prefill_token_budget`` prompt tokens beside each decode step,
+       so a long admission never stalls the running batch.  It joins
+       decode when its last chunk lands (the TTFT moment), and its
+       full prompt blocks are published.  With
+       ``chunked_prefill=False`` each join pays one monolithic bucketed
+       prefill (B1, the flash kernel, on every layer).
     3. **decode** — one token for every active sequence (bucketed by
        count; block tables absorb ragged lengths).  Finished sequences
        (EOS / token budget / context cap / past deadline) resolve and
-       release their KV blocks the SAME iteration.
+       release their KV blocks the same iteration; half-prefilled ones
+       release theirs at expiry too.
 
     Admission: bounded queue -> ``QueueFullError`` (HTTP 429 +
-    Retry-After); queued requests past their deadline expire; a prompt
-    over the context cap raises ``PromptTooLongError`` at submit.
-
-    ``chunked_prefill=True`` (the JAX default when the model declares a
-    ``chunk_fn``) is not ported yet: this slice serves the monolithic
-    posture (``chunked_prefill=False``), which is what puts the flash
-    kernel on every prefill.
+    Retry-After); a closed admission (drain) -> ``DrainingError`` (HTTP
+    503); queued requests past their deadline expire; a prompt over the
+    context cap raises ``PromptTooLongError`` at submit, never
+    mid-chunk.
     """
 
     def __init__(
@@ -336,26 +417,67 @@ class TokenContinuousBatcher:
         queue_limit: int = 256,
         default_deadline_s: float = 30.0,
         default_max_new: int = 16,
-        chunked_prefill: bool = False,
+        refresh: bool = True,
+        chunked_prefill: Optional[bool] = None,
+        prefill_token_budget: int = 0,
+        prefix_cache: Optional[bool] = None,
     ):
-        if chunked_prefill:
-            raise NotImplementedError(
-                "chunked prefill is not ported yet (ROADMAP queue A, "
-                "serving slice residue); use chunked_prefill=False"
-            )
         self.engine = engine
         self.queue_limit = int(queue_limit)
         self.default_deadline_s = float(default_deadline_s)
         self.default_max_new = int(default_max_new)
-        self.chunked_prefill = False
+        #: False: another batcher sharing this engine drives refresh();
+        #: this one still sees generation changes and re-prefills
+        self.refresh = refresh
+        has_chunk = getattr(engine.spec, "chunk_fn", None) is not None
+        if chunked_prefill is None:
+            chunked_prefill = has_chunk
+        elif chunked_prefill and not has_chunk:
+            raise ValueError(
+                f"model {engine.model.name!r} declares no chunk_fn; "
+                "chunked prefill unavailable"
+            )
+        self.chunked_prefill = bool(chunked_prefill)
+        #: prompt tokens one iteration may spend on prefill chunks beside
+        #: its decode step (0 -> the engine's max chunk size)
+        self.prefill_token_budget = int(
+            prefill_token_budget or engine.max_chunk_tokens
+        )
+        #: content-addressed prefix reuse: chunked mode only (the skip
+        #: offset is a chunk offset); on by default with it
+        if prefix_cache is None:
+            prefix_cache = self.chunked_prefill
+        self.prefix = None
+        if prefix_cache:
+            if not self.chunked_prefill:
+                raise ValueError(
+                    "prefix_cache requires chunked prefill (the claimed "
+                    "run's skip offset is a chunk offset)"
+                )
+            from edl_tpu_torch.serving.prefix import PrefixCache
+
+            self.prefix = PrefixCache(engine.pool, engine.block_tokens)
         self._cv = threading.Condition()
         self._queue: deque = deque()
+        #: FIFO of admitted, partly prefilled sequences (chunked mode):
+        #: the head is fed chunk by chunk under the budget
+        self._prefilling: deque = deque()
+        #: running counts behind ``queued_prefill_tokens``: queued
+        #: prompt tokens (changed under _cv with the queue) and the
+        #: FIFO's remaining tokens (worker thread only)
+        self._queued_tokens = 0
+        self._prefilling_tokens = 0
         self._active: List[GenerateTicket] = []
         self._stop = False
+        #: admission closed (drain): submit_generate raises
+        #: DrainingError; queued, prefilling and active sequences finish
+        self._draining = False
         self._thread: Optional[threading.Thread] = None
         self._bound_gen = -1
         self._bound_step = -1
-        self.stats = {"iterations": 0, "prefills": 0, "restarts": 0}
+        self._bound_epoch = 0  # engine.cache_epoch last observed
+        self.stats = {"iterations": 0, "prefills": 0, "swaps": 0,
+                      "restarts": 0, "chunks": 0}
 
         from edl_tpu_torch import telemetry
 
@@ -368,9 +490,14 @@ class TokenContinuousBatcher:
         self._g_depth = reg.gauge("edl_serve_decode_queue_depth")
         self._g_active = reg.gauge("edl_serve_active_sequences")
         self._g_kv = reg.gauge("edl_serve_kv_occupancy")
+        self._g_kv_bytes = reg.gauge("edl_serve_kv_used_bytes_per_device")
         self._m_ttft = reg.histogram("edl_serve_ttft_seconds")
         self._m_intertoken = reg.histogram("edl_serve_intertoken_seconds")
         self._m_occupancy = reg.histogram("edl_serve_batch_occupancy")
+        self._m_chunks = reg.counter("edl_serve_prefill_chunks_total")
+        self._m_prefill_tokens = reg.counter("edl_serve_prefill_tokens_total")
+        self._g_prefill_queued = reg.gauge("edl_serve_prefill_queued_tokens")
+        self._m_stall = reg.histogram("edl_serve_prefill_stall_seconds")
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "TokenContinuousBatcher":
@@ -400,6 +527,43 @@ class TokenContinuousBatcher:
     def active_count(self) -> int:
         return len(self._active)
 
+    @property
+    def prefilling_count(self) -> int:
+        return len(self._prefilling)
+
+    @property
+    def queued_prefill_tokens(self) -> int:
+        """Prompt tokens still awaiting prefill: the chunk FIFO's
+        remaining work plus every queued prompt (running counts, so a
+        /healthz read never walks a deque the worker is changing)."""
+        return self._queued_tokens + self._prefilling_tokens
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def in_flight(self) -> int:
+        """Sequences admitted but not yet resolved: queued, mid-prefill
+        and in the decode batch.  A drain waits for it to reach 0; the
+        KV pool then holds no owned block (every finish path frees its
+        blocks the same iteration)."""
+        with self._cv:
+            return len(self._queue) + len(self._prefilling) + len(self._active)
+
+    def close_admission(self) -> None:
+        """Enter drain: later ``submit_generate`` calls raise
+        DrainingError (HTTP 503 + Retry-After); every admitted sequence
+        runs to its normal finish and frees its KV blocks."""
+        with self._cv:
+            self._draining = True
+
+    def pending(self) -> List[GenerateTicket]:
+        """The tickets on this batcher's books: queued, mid-prefill and
+        decoding."""
+        with self._cv:
+            return list(self._queue) + list(self._prefilling) + list(self._active)
+
     # -- admission ----------------------------------------------------------
     def submit_generate(
         self,
@@ -410,9 +574,13 @@ class TokenContinuousBatcher:
         on_event=None,
     ) -> GenerateTicket:
         """Admit one autoregressive request (a single prompt row).
-        Raises ``QueueFullError`` on backpressure and ``ValueError``
-        (``PromptTooLongError`` included) on a schema violation — both
+        Raises ``QueueFullError`` on backpressure, ``DrainingError``
+        once admission closed for a drain, and ``ValueError``
+        (``PromptTooLongError`` included) on a schema violation — all
         before any compute."""
+        if self._draining:
+            self._m_requests.inc(status="draining")
+            raise DrainingError()
         prompt = self.engine.coerce_prompt(inputs)
         max_new = int(max_new_tokens or self.default_max_new)
         if max_new < 1:
@@ -428,6 +596,9 @@ class TokenContinuousBatcher:
             on_event=on_event,
         )
         with self._cv:
+            if self._draining:
+                self._m_requests.inc(status="draining")
+                raise DrainingError()
             if len(self._queue) >= self.queue_limit:
                 self._m_requests.inc(status="rejected")
                 raise QueueFullError(
@@ -435,6 +606,7 @@ class TokenContinuousBatcher:
                     retry_after=max(0.01, budget / 4),
                 )
             self._queue.append(ticket)
+            self._queued_tokens += int(prompt.shape[0])
             self._g_depth.set(len(self._queue))
             self._cv.notify()
         return ticket
@@ -459,6 +631,8 @@ class TokenContinuousBatcher:
                 "weights_generation": self._bound_gen,
                 "restarts": t.restarts,
                 "prompt_tokens": int(t.prompt.shape[0]),
+                "prefill_chunks": t.chunks,
+                "reused_blocks": t.reused_blocks,
                 "ttft_s": (
                     round(t.first_time - t.enqueued, 6)
                     if t.first_time is not None
@@ -475,55 +649,78 @@ class TokenContinuousBatcher:
         t._reject(DeadlineExceededError("deadline passed mid-generation"))
 
     def _restart_active(self, new_gen: int, new_step: int) -> None:
-        """New weights landed: every in-flight sequence re-prefills
-        against them.  Its emitted-so-far tokens are VOID (streamed as a
-        restart event) — continuing the old prefix under new weights
-        would mix generations within one sequence."""
+        """New weights landed, or the cache was lost: every in-flight
+        sequence re-prefills.  A decoding sequence's tokens so far are
+        VOID (streamed as a restart event): continuing its prefix under
+        new weights would mix generations within one sequence.
+        Half-prefilled sequences restart their chunking from zero too
+        (their cache holds old K/V); they streamed nothing, so they get
+        no restart event."""
         restarted = list(self._active)
         self._active = []
+        rewound = list(self._prefilling)
+        self._prefilling.clear()
+        self._prefilling_tokens = 0
+        for t in rewound + restarted:
+            self._free_blocks(t)
+            t.prefilled = 0
+            t.reused_blocks = 0
+        for t in restarted:
+            t.tokens = []
+            t.length = 0
+            t.last_token = 0
+            t.restarts += 1
+            t._event(
+                {
+                    "restart": True,
+                    "weights_generation": new_gen,
+                    "weights_step": new_step,
+                }
+            )
+        # back at the queue's head in arrival order: the half-prefilled
+        # were admitted after the decoding ones, both before the queue
         with self._cv:
-            for t in reversed(restarted):
-                self._free_blocks(t)
-                t.tokens = []
-                t.length = 0
-                t.last_token = 0
-                t.restarts += 1
-                t._event(
-                    {
-                        "restart": True,
-                        "weights_generation": new_gen,
-                        "weights_step": new_step,
-                    }
-                )
-                self._queue.appendleft(t)  # keep arrival order
+            for t in reversed(restarted + rewound):
+                self._queue.appendleft(t)
+                self._queued_tokens += int(t.prompt.shape[0])
             self._g_depth.set(len(self._queue))
         if restarted:
             self.stats["restarts"] += len(restarted)
             self._m_restarts.inc(len(restarted))
 
+    def _pop_admissible(self) -> Optional[GenerateTicket]:
+        """The queue's head, expiring dead requests on the way (caller
+        holds ``_cv``)."""
+        while self._queue:
+            t = self._queue[0]
+            if t.deadline > time.monotonic():
+                return t
+            self._queue.popleft()
+            self._queued_tokens -= int(t.prompt.shape[0])
+            self._g_depth.set(len(self._queue))
+            self._m_requests.inc(status="expired")
+            t._reject(DeadlineExceededError("deadline passed while queued"))
+        return None
+
     def _admit(self, weights) -> int:
-        """Token-boundary JOIN: pop queued requests while decode slots
-        and KV blocks last; each pays its own bucketed prefill.  Returns
-        how many sequences joined."""
+        """Monolithic JOIN: pop queued requests while decode slots and
+        KV blocks last; each pays its own bucketed prefill.  Returns how
+        many sequences joined."""
         bt = self.engine.block_tokens
         joined = 0
+        epoch0 = self.engine.cache_epoch
         while len(self._active) < self.engine.max_seqs:
             with self._cv:
-                if not self._queue:
+                t = self._pop_admissible()
+                if t is None:
                     return joined
-                t = self._queue[0]
-                if t.deadline <= time.monotonic():
-                    self._queue.popleft()
-                    self._g_depth.set(len(self._queue))
-                    self._m_requests.inc(status="expired")
-                    t._reject(DeadlineExceededError("deadline passed while queued"))
-                    continue
                 plen = int(t.prompt.shape[0])
                 need = self.engine.prompt_bucket_for(plen) // bt
                 blocks = self.engine.pool.alloc(need)
                 if blocks is None:
                     return joined  # KV pressure: no more joins now
                 self._queue.popleft()
+                self._queued_tokens -= plen
                 self._g_depth.set(len(self._queue))
             t.blocks = blocks
             t.table = np.zeros(self.engine.blocks_per_seq, np.int32)
@@ -535,14 +732,19 @@ class TokenContinuousBatcher:
                 self._free_blocks(t)
                 self._m_requests.inc(status="error")
                 t._reject(e)
+                if self.engine.cache_epoch != epoch0:
+                    return joined  # the cache is lost: rewind first
                 continue
+            t.chunks += 1
             self._join_decode(t, first, plen, weights)
             joined += 1
         return joined
 
     def _join_decode(self, t: GenerateTicket, first: int, plen: int, weights) -> None:
-        """The TTFT moment: a prefilled sequence emits its first token
-        and joins the running decode batch."""
+        """The TTFT moment: a fully prefilled sequence emits its first
+        token and joins the running decode batch (after a monolithic
+        prefill or its final chunk; TTFT counts from enqueue either
+        way)."""
         self.stats["prefills"] += 1
         self._m_prefills.inc()
         now = time.monotonic()
@@ -565,6 +767,117 @@ class TokenContinuousBatcher:
         self._active.append(t)
         if self._seq_finished(t):
             self._finish(t)
+
+    def _admit_chunked(self) -> int:
+        """Chunked JOIN: pop queued requests into the prefill FIFO while
+        decode slots last (a prefilling sequence holds one).  KV blocks
+        are taken per chunk, so admission itself is instant; a prompt
+        that starts with a published run claims it and skips to its
+        first cold block."""
+        joined = 0
+        while len(self._active) + len(self._prefilling) < self.engine.max_seqs:
+            with self._cv:
+                t = self._pop_admissible()
+                if t is None:
+                    return joined
+                self._queue.popleft()
+                self._queued_tokens -= int(t.prompt.shape[0])
+                self._g_depth.set(len(self._queue))
+            if t.table is None:
+                t.table = np.zeros(self.engine.blocks_per_seq, np.int32)
+            if self.prefix is not None and t.prefilled == 0 and not t.blocks:
+                run, skip = self.prefix.claim(t.prompt)
+                if skip:
+                    # The claimed blocks are read-only here: every write
+                    # of this sequence lands at positions >= skip, in
+                    # blocks the chunk loop allocates for it.
+                    t.blocks = list(run)
+                    t.table[: len(run)] = run
+                    t.prefilled = skip
+                    t.reused_blocks = len(run)
+            self._prefilling_tokens += int(t.prompt.shape[0]) - t.prefilled
+            self._prefilling.append(t)
+            joined += 1
+        return joined
+
+    def _prefill_iteration(self, weights) -> int:
+        """Feed the prefill FIFO's head at most ``prefill_token_budget``
+        prompt tokens of chunks (a sequence's chunks in order; the head
+        finishes before the next starts).  Non-final chunks are
+        block-aligned, so every offset stays aligned; the final chunk
+        pads to its bucket and emits the first token.  Returns how many
+        chunks ran."""
+        eng = self.engine
+        bt = eng.block_tokens
+        budget = max(self.prefill_token_budget, bt)
+        epoch0 = eng.cache_epoch
+        dispatched = 0
+        while budget > 0 and self._prefilling:
+            t = self._prefilling[0]
+            plen = int(t.prompt.shape[0])
+            if t.deadline <= time.monotonic():
+                # Expiry frees a half-prefilled sequence's blocks too.
+                self._prefilling.popleft()
+                self._prefilling_tokens -= plen - t.prefilled
+                self._free_blocks(t)
+                self._m_requests.inc(status="expired")
+                t._reject(DeadlineExceededError("deadline passed mid-prefill"))
+                continue
+            rem = plen - t.prefilled
+            # Cap the chunk so its padded bucket still fits the context
+            # window (the offset is block-aligned and below the window,
+            # so at least one block of room is left).
+            room = eng.max_context - t.prefilled
+            cap = bt
+            for c in eng.chunk_buckets:
+                if c <= room:
+                    cap = c
+            clen = min(rem, cap, budget)
+            if clen < rem:
+                clen = (clen // bt) * bt
+                if clen == 0:
+                    break  # budget left under one block: next iteration
+            bucket = eng.chunk_bucket_for(clen)
+            need = (t.prefilled + bucket) // bt - len(t.blocks)
+            if need > 0:
+                blocks = eng.pool.alloc(need)
+                if blocks is None:
+                    break  # KV pressure: the FIFO head waits its turn
+                for b in blocks:
+                    t.table[len(t.blocks)] = b
+                    t.blocks.append(b)
+            try:
+                first = eng.prefill_chunk(
+                    weights, t.prompt[t.prefilled:t.prefilled + clen],
+                    t.prefilled, t.table,
+                )
+            except Exception as e:
+                traceback.print_exc()
+                self._prefilling.popleft()
+                self._prefilling_tokens -= plen - t.prefilled
+                self._free_blocks(t)
+                self._m_requests.inc(status="error")
+                t._reject(e)
+                if eng.cache_epoch != epoch0:
+                    break  # the cache is lost: the worker rewinds first
+                continue
+            t.prefilled += clen
+            t.chunks += 1
+            self._prefilling_tokens -= clen
+            budget -= clen
+            dispatched += 1
+            self.stats["chunks"] += 1
+            self._m_chunks.inc()
+            self._m_prefill_tokens.inc(clen)
+            if t.prefilled >= plen:
+                self._prefilling.popleft()
+                if self.prefix is not None:
+                    # Publish the full prompt blocks: this sequence's own
+                    # reference keeps them while it decodes; at refcount
+                    # 0 they park on the pool's cached LRU.
+                    self.prefix.publish(t.prompt, t.blocks)
+                self._join_decode(t, first, plen, weights)
+        return dispatched
 
     def _seq_finished(self, t: GenerateTicket) -> bool:
         if t.eos_id is not None and t.tokens and t.tokens[-1] == t.eos_id:
@@ -633,45 +946,94 @@ class TokenContinuousBatcher:
                 self._finish(t)
         return len(ready)
 
+    def _refresh(self) -> None:
+        """Ask the engine for newer weights (a failure of the swap path
+        costs the swap, never the worker)."""
+        if not self.refresh:
+            return
+        try:
+            if self.engine.refresh():
+                self.stats["swaps"] += 1
+        except Exception:
+            traceback.print_exc()
+
     def _work(self) -> None:
         while True:
             with self._cv:
-                while not self._queue and not self._active and not self._stop:
+                idle = not (self._queue or self._active or self._prefilling)
+                if idle and not self._stop:
                     self._cv.wait(timeout=0.5)
                 if self._stop:
                     queued = list(self._queue)
                     self._queue.clear()
+                    self._queued_tokens = 0
                     self._g_depth.set(0)
                     break
+                idle = not (self._queue or self._active or self._prefilling)
+            # 1. the weights check, at the token boundary only (and on
+            # each idle wake-up, so an idle replica swaps as well)
+            self._refresh()
+            if idle:
+                continue
             w = self.engine.current_weights()
             if w is None:
-                # No weights installed: requests cannot be served.
+                # No weights loaded: requests cannot be served.
                 with self._cv:
                     queued = list(self._queue)
                     self._queue.clear()
+                    self._queued_tokens = 0
                     self._g_depth.set(0)
                 for t in queued:
                     self._m_requests.inc(status="error")
-                    t._reject(NotReadyError("no weights installed"))
+                    t._reject(NotReadyError("no weights loaded"))
                 continue
-            if w.generation != self._bound_gen:
+            epoch = self.engine.cache_epoch
+            if w.generation != self._bound_gen or epoch != self._bound_epoch:
+                if self.prefix is not None:
+                    # Rekey before the restart frees any block: the index
+                    # drops at once, and no admission under the new key
+                    # can claim a block filled under the old one.
+                    self.prefix.rekey((w.generation, epoch))
                 if self._bound_gen >= 0:
                     self._restart_active(w.generation, w.step)
                 self._bound_gen = w.generation
                 self._bound_step = w.step
-            progress = self._admit(w)
+                self._bound_epoch = epoch
+            # 2. join + budgeted prefill work; 3. one decode iteration.
+            # The time admission work holds up a running batch is the
+            # stall the chunked scheduler bounds.
+            had_active = bool(self._active)
+            t_pre = time.monotonic()
+            if self.chunked_prefill:
+                progress = self._admit_chunked()
+                prefill_work = self._prefill_iteration(w)
+                progress += prefill_work
+            else:
+                progress = prefill_work = self._admit(w)
+            if had_active and prefill_work:
+                self._m_stall.observe(time.monotonic() - t_pre)
+            if self.engine.cache_epoch != epoch:
+                # A failed call rebuilt the pool: the active batch's
+                # cache is gone, so decoding it now would emit garbage.
+                # Rewind first (next iteration's check).
+                continue
             progress += self._decode_iteration(w)
+            pool = self.engine.pool
             self._g_active.set(len(self._active))
-            self._g_kv.set(self.engine.pool.occupancy())
-            if not progress and (self._active or self._queue):
+            self._g_kv.set(pool.occupancy())
+            self._g_kv_bytes.set(pool.used_blocks * (pool.nbytes() // pool.num_blocks))
+            self._g_prefill_queued.set(self.queued_prefill_tokens)
+            if not progress and (self._active or self._queue or self._prefilling):
                 # Every live sequence is stalled (KV-block exhaustion)
                 # and nobody could join: nothing changes until a
                 # deadline expires or blocks free, so don't busy-spin.
                 time.sleep(0.01)
-        # stopped: nothing queued or active survives.
-        for t in queued + list(self._active):
+        # stopped: nothing queued, prefilling or active survives.
+        for t in queued + list(self._prefilling) + list(self._active):
             self._free_blocks(t)
             self._m_requests.inc(status="error")
             t._reject(RuntimeError("batcher stopped"))
+        self._prefilling.clear()
+        self._prefilling_tokens = 0
         self._active = []
         self._g_active.set(0)

@@ -1,27 +1,39 @@
-"""HTTP serving front (counterpart of ``edl_tpu/serving/server.py``).
+"""HTTP serving front and replica driver (counterpart of
+``edl_tpu/serving/server.py``).
 
 One stdlib ``ThreadingHTTPServer`` per replica:
 
 - ``POST /predict``  — ``{"inputs": {...}, "deadline_ms": 500}`` ->
   ``{"outputs": {...}, "weights_step": N, ...}``; 429 + ``Retry-After``
-  on admission backpressure, 503 before weights are installed, 504 past
-  deadline, 400 on a malformed request.
+  on admission backpressure, 503 + ``Retry-After`` while draining, 503
+  before weights load, 504 past deadline, 400 on a malformed request.
 - ``POST /generate`` — autoregressive decode on the token batcher:
   ``{"inputs": {"tokens": [...]}, "max_new_tokens": 16,
   "deadline_ms": 30000, "eos_id": 1, "stream": true}``.  Non-stream
-  replies one JSON object; ``stream: true`` replies chunked
-  ``application/x-ndjson`` — one line per token as it decodes, a
-  ``{"restart": true}`` line when new weights void prior tokens, and a
-  final ``{"done": true, "tokens": [...]}`` line that is the
-  authoritative output.  A prompt over the context cap is a 400.
-- ``GET /healthz``   — readiness: weights step, queue depths, decode
-  pool occupancy.
+  replies one JSON object with the admission receipts
+  (``prefill_chunks``, ``reused_blocks``, ``ttft_ms``); ``stream:
+  true`` replies chunked ``application/x-ndjson`` — one line per token
+  as it decodes, a ``{"restart": true}`` line when new weights void
+  prior tokens, and a final ``{"done": true, "tokens": [...]}`` line
+  that is the authoritative output.  A prompt over the context cap is
+  a 400; the same 429/503/504 mapping as /predict.
+- ``POST /drain``    — ``{"budget_ms": 30000, "wait": true}``: close
+  admission, let every admitted request finish, free its KV blocks,
+  deregister from the serving coordinator; the reply is the drain's
+  ack (``drained``, ``in_flight``).
+- ``GET /healthz``   — readiness: weights step, queue depths, drain
+  posture, decode pool occupancy and the chunked-prefill / prefix-cache
+  posture.
 - ``GET /metrics``   — Prometheus exposition of the process registry.
 
-``python -m edl_tpu_torch.serving.server --entrypoint transformer_lm
---port P [--seed S] [--device cuda]`` runs one replica serving seeded
-weights.  ``ServingReplica`` (coordinator registration, heartbeats),
-``POST /drain`` and the router come with later slices.
+``ServingReplica`` drives one replica's control plane: load the newest
+checkpoint, warm, start serving, register with the serving coordinator,
+heartbeat (re-registering after an eviction), and drain.  The pod
+entry point, ``python -m edl_tpu_torch.serving.server --checkpoint-dir
+D [--coordinator HOST:PORT]``, goes through ``serve_run`` and drains
+then exits on SIGTERM.  ``build_replica`` starts a replica on seeded
+weights instead (no checkpoint, no coordinator).  Live migration, the
+router and the telemetry reports come with later slices.
 """
 
 from __future__ import annotations
@@ -30,12 +42,14 @@ import json
 import queue
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from edl_tpu_torch.serving.batcher import (
     ContinuousBatcher,
     DeadlineExceededError,
+    DrainingError,
     QueueFullError,
 )
 from edl_tpu_torch.serving.engine import NotReadyError
@@ -59,7 +73,12 @@ class ServingServer:
     ):
         self.batcher = batcher
         self.gen_batcher = gen_batcher
+        #: the ServingReplica driving this server (set by its start):
+        #: POST /drain runs the replica's whole contract through it;
+        #: without one the handler drains the batchers directly
+        self.replica = None
         engine = batcher.engine
+        self_server = self
         from edl_tpu_torch import telemetry
 
         registry = telemetry.get_registry()
@@ -90,23 +109,41 @@ class ServingServer:
                     headers=(("Retry-After", f"{e.retry_after:.3f}"),),
                 )
 
+            def _reply_draining(self, e: DrainingError):
+                # 503 + Retry-After, distinct from the 429 of a full
+                # queue: this replica is leaving, retry elsewhere.
+                self._reply(
+                    {"error": str(e), "draining": True,
+                     "retry_after_s": e.retry_after},
+                    503,
+                    headers=(("Retry-After", f"{e.retry_after:.3f}"),),
+                )
+
             def _read_json(self):
                 n = int(self.headers.get("Content-Length", 0))
                 return json.loads(self.rfile.read(n) or b"{}")
 
             def do_GET(self):
                 if self.path == "/healthz":
+                    gen = self_server.gen_batcher
                     health = {
                         "ok": engine.ready,
                         "model": engine.model.name,
                         "device": str(engine.device),
                         "weights_step": engine.weights_step,
                         "weights_generation": engine.weights_generation,
+                        "warm": engine.warmed,
                         "queue_depth": batcher.depth,
                         "queue_limit": batcher.queue_limit,
+                        # drain posture: admission state and what is
+                        # still in flight (a scale-down polls these)
+                        "draining": batcher.draining
+                        or (gen is not None and gen.draining),
+                        "in_flight": batcher.in_flight
+                        + (gen.in_flight if gen is not None else 0),
                     }
-                    gen = gen_batcher
                     if gen is not None:
+                        pool = engine.pool
                         health["decode"] = {
                             "max_seqs": engine.max_seqs,
                             "max_context": engine.max_context,
@@ -114,9 +151,20 @@ class ServingServer:
                             "active_sequences": gen.active_count,
                             "decode_queue_depth": gen.depth,
                             "queue_limit": gen.queue_limit,
-                            "kv_occupancy": round(engine.pool.occupancy(), 4),
-                            "kv_pool_bytes": engine.pool.nbytes(),
+                            "kv_occupancy": round(pool.occupancy(), 4),
+                            "kv_pool_bytes": pool.nbytes(),
+                            "kv_used_blocks": pool.used_blocks,
+                            "kv_cached_blocks": pool.cached_blocks,
+                            # how admission shares iterations with decode
                             "chunked_prefill": gen.chunked_prefill,
+                            "prefill_token_budget": gen.prefill_token_budget,
+                            "max_chunk_tokens": engine.max_chunk_tokens,
+                            "prefilling_sequences": gen.prefilling_count,
+                            "queued_prefill_tokens": gen.queued_prefill_tokens,
+                            "prefix_cache": (
+                                None if gen.prefix is None
+                                else {"entries": len(gen.prefix), **gen.prefix.stats}
+                            ),
                         }
                     self._reply(health, 200 if engine.ready else 503)
                 elif self.path == "/metrics":
@@ -134,6 +182,8 @@ class ServingServer:
                     self._do_generate()
                 elif self.path == "/predict":
                     self._do_predict()
+                elif self.path == "/drain":
+                    self._do_drain()
                 else:
                     self._reply({"error": "not found"}, 404)
 
@@ -154,6 +204,9 @@ class ServingServer:
                     )
                 except QueueFullError as e:
                     self._reply_429(e)
+                    return
+                except DrainingError as e:
+                    self._reply_draining(e)
                     return
                 except (DeadlineExceededError, TimeoutError) as e:
                     self._reply({"error": str(e)}, 504)
@@ -177,7 +230,7 @@ class ServingServer:
                 )
 
             def _do_generate(self):
-                gen = gen_batcher
+                gen = self_server.gen_batcher
                 if gen is None:
                     self._reply(
                         {
@@ -207,6 +260,9 @@ class ServingServer:
                 except QueueFullError as e:
                     self._reply_429(e)
                     return
+                except DrainingError as e:
+                    self._reply_draining(e)
+                    return
                 except ValueError as e:
                     self._reply({"error": str(e)}, 400)
                     return
@@ -231,6 +287,11 @@ class ServingServer:
                         "weights_step": meta["weights_step"],
                         "weights_generation": meta["weights_generation"],
                         "restarts": meta["restarts"],
+                        # admission receipts: prefill calls the prompt
+                        # took, and the KV blocks it reused from the
+                        # prefix cache instead of prefilling
+                        "prefill_chunks": meta.get("prefill_chunks", 0),
+                        "reused_blocks": meta.get("reused_blocks", 0),
                         "ttft_ms": (
                             round(meta["ttft_s"] * 1000.0, 3)
                             if meta.get("ttft_s") is not None
@@ -239,6 +300,40 @@ class ServingServer:
                         "latency_ms": round((time.monotonic() - t0) * 1000.0, 3),
                     }
                 )
+
+            def _do_drain(self):
+                """POST /drain: the graceful-shutdown contract.  With
+                ``wait`` (the default) the reply is the drain's ack."""
+                try:
+                    req = self._read_json()
+                except ValueError:
+                    self._reply({"error": "bad json"}, 400)
+                    return
+                budget_ms = req.get("budget_ms")
+                budget_s = float(budget_ms) / 1000.0 if budget_ms is not None else None
+                wait = bool(req.get("wait", True))
+                rep = self_server.replica
+                if rep is not None:
+                    if wait:
+                        self._reply(rep.drain(budget_s=budget_s))
+                    else:
+                        threading.Thread(
+                            target=rep.drain, kwargs={"budget_s": budget_s},
+                            daemon=True, name="edl-serve-drain",
+                        ).start()
+                        self._reply({"draining": True, "drained": False})
+                    return
+                # No replica attached: close admission and wait the
+                # batchers out under the budget.
+                gens = [b for b in (batcher, self_server.gen_batcher) if b is not None]
+                for b in gens:
+                    b.close_admission()
+                deadline = time.monotonic() + (budget_s if budget_s is not None else 30.0)
+                left = sum(b.in_flight for b in gens)
+                while wait and left and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                    left = sum(b.in_flight for b in gens)
+                self._reply({"draining": True, "drained": left == 0, "in_flight": left})
 
             def _stream(self, events, budget: float):
                 """Chunked JSON lines: one object per event as the
@@ -290,6 +385,221 @@ class ServingServer:
             self._thread.join(timeout=10)
 
 
+class ServingReplica:
+    """One serving replica's control plane: load -> warm -> serve ->
+    register -> heartbeat until drained or stopped.
+
+    ``coordinator`` is the serving world's coordinator (a
+    ``LocalCoordinator`` or an ``HTTPCoordinator``: the same membership
+    machinery the training world runs).  Warm before register: by the
+    time the replica appears among the members, its first request builds
+    and loads nothing.  A heartbeat that finds the replica evicted
+    (``KeyError``) registers it again."""
+
+    def __init__(
+        self,
+        engine,
+        batcher: Optional[ContinuousBatcher] = None,
+        server: Optional[ServingServer] = None,
+        coordinator=None,
+        replica_id: str = "",
+        address: str = "",
+        heartbeat_interval: float = 2.0,
+        gen_batcher=None,
+        drain_budget_s: float = 30.0,
+    ):
+        """``drain_budget_s``: how long a drain lets in-flight work
+        finish before it gives up (``EDL_SERVE_DRAIN_MS`` through
+        ``serve_run``)."""
+        self.engine = engine
+        self.batcher = batcher or ContinuousBatcher(engine)
+        if gen_batcher is None and getattr(engine, "spec", None) is not None:
+            from edl_tpu_torch.serving.batcher import TokenContinuousBatcher
+
+            gen_batcher = TokenContinuousBatcher(engine)
+        self.gen_batcher = gen_batcher
+        self.server = server
+        self.coordinator = coordinator
+        self.replica_id = replica_id or f"serve-{uuid.uuid4().hex[:8]}"
+        self.address = address
+        self.heartbeat_interval = float(heartbeat_interval)
+        self.drain_budget_s = float(drain_budget_s)
+        self.loaded = False
+        self._stop_evt: Optional[threading.Event] = None
+        self._thread: Optional[threading.Thread] = None
+        self._deregistered = False
+        #: the drain's state machine: None (serving) -> "running" ->
+        #: "drained" (terminal) or "incomplete" (budget missed:
+        #: admission stays closed, the replica stays registered and
+        #: heartbeating, a later drain retries)
+        self._drain_lock = threading.Lock()
+        self._drain_state: Optional[str] = None
+        self._drain_evt: Optional[threading.Event] = None
+        self._drain_result: Optional[dict] = None
+        #: generation tickets on the books when the drain began; a
+        #: retried drain waits only for those still unresolved
+        self._drain_pending: Optional[list] = None
+        self._drain_total = 0
+        from edl_tpu_torch import telemetry
+
+        reg = telemetry.get_registry()
+        self._g_draining = reg.gauge("edl_serve_draining")
+        self._m_drains = reg.counter("edl_serve_drains_total")
+        self._h_drain = reg.histogram("edl_serve_drain_seconds")
+
+    def start(self) -> "ServingReplica":
+        self.loaded = self.engine.load()
+        # Warm before register (see the class doc).
+        self.engine.warm()
+        self.batcher.start()
+        if self.gen_batcher is not None:
+            self.gen_batcher.start()
+            if self.server is not None and self.server.gen_batcher is None:
+                self.server.gen_batcher = self.gen_batcher
+        if self.server is not None:
+            self.server.replica = self  # POST /drain comes here
+            self.server.start()
+        if self.coordinator is not None:
+            self.coordinator.register(self.replica_id, address=self.address)
+            self._start_background()
+        self._g_draining.set(0, replica=self.replica_id)
+        return self
+
+    def stop(self) -> None:
+        self._stop_heartbeats()
+        if self.coordinator is not None and not self._deregistered:
+            try:
+                self.coordinator.deregister(self.replica_id)
+                self._deregistered = True
+            except Exception:
+                pass
+        if self.server is not None:
+            self.server.stop()
+        self.batcher.stop()
+        if self.gen_batcher is not None:
+            self.gen_batcher.stop()
+
+    # -- graceful drain -----------------------------------------------------
+    def _in_flight(self) -> int:
+        n = self.batcher.in_flight
+        if self.gen_batcher is not None:
+            n += self.gen_batcher.in_flight
+        return n
+
+    def drain(self, budget_s: Optional[float] = None) -> dict:
+        """The graceful-shutdown contract, in order: (1) close admission
+        (later requests get 503 + Retry-After: this replica is leaving);
+        (2) let every admitted request and decode sequence finish under
+        ``budget_s`` (their finish paths free their KV blocks the same
+        iteration); (3) stop heartbeating, then deregister from the
+        serving coordinator (heartbeats first, or the eviction-rejoin
+        path would register the leaving replica again); (4) return the
+        ack.  The caller owns the exit (``stop``); a drained replica
+        still answers /healthz and /metrics until then.
+
+        One drain runs at a time; concurrent callers (POST /drain racing
+        SIGTERM) wait for it and share its result.  A drain that misses
+        its budget is ``incomplete``, not final: admission stays closed,
+        but the replica stays registered and heartbeating, so it stays
+        visible as an undrained member, and a later drain waits out the
+        rest.  Only a finished drain deregisters."""
+        budget = self.drain_budget_s if budget_s is None else float(budget_s)
+        give_up = time.monotonic() + budget + 10.0
+        while True:
+            with self._drain_lock:
+                if self._drain_state == "drained":
+                    return dict(self._drain_result)
+                if self._drain_state in (None, "incomplete"):
+                    first = self._drain_state is None
+                    self._drain_state = "running"
+                    evt = self._drain_evt = threading.Event()
+                    break  # this caller owns the (re)attempt
+                evt = self._drain_evt  # one is running: wait for it
+            evt.wait(timeout=max(0.05, give_up - time.monotonic()))
+            if time.monotonic() >= give_up:
+                return dict(self._drain_result or {"draining": True, "drained": False})
+        t0 = time.monotonic()
+        self._g_draining.set(1, replica=self.replica_id)
+        if first:
+            self._m_drains.inc()  # drains, not attempts
+        self.batcher.close_admission()
+        if self.gen_batcher is not None:
+            self.gen_batcher.close_admission()
+        if self._drain_pending is None:
+            self._drain_pending = (
+                self.gen_batcher.pending() if self.gen_batcher is not None else []
+            )
+            self._drain_total = len(self._drain_pending)
+        deadline = t0 + budget
+        while time.monotonic() < deadline and self._in_flight():
+            time.sleep(0.005)
+        leftover = self._in_flight()
+        drained = leftover == 0
+        self._drain_pending = [t for t in self._drain_pending if not t._done.is_set()]
+        if drained:
+            self._stop_heartbeats()
+            if self.coordinator is not None and not self._deregistered:
+                try:
+                    self.coordinator.deregister(self.replica_id)
+                    self._deregistered = True
+                except Exception:
+                    pass
+        dt = time.monotonic() - t0
+        self._h_drain.observe(dt)
+        self._g_draining.set(2 if drained else 1, replica=self.replica_id)
+        result = {
+            "draining": True,
+            "drained": drained,
+            "in_flight": leftover,
+            "seconds": round(dt, 6),
+            "progress": {
+                "total": self._drain_total,
+                "remaining": len(self._drain_pending),
+            },
+        }
+        with self._drain_lock:
+            self._drain_result = result
+            self._drain_state = "drained" if drained else "incomplete"
+            evt.set()
+        return dict(result)
+
+    # -- heartbeats ---------------------------------------------------------
+    def _start_background(self) -> None:
+        self._stop_evt = threading.Event()
+
+        def loop():
+            while not self._stop_evt.wait(max(self.heartbeat_interval, 0.05)):
+                self._beat_once()
+
+        self._thread = threading.Thread(
+            target=loop, daemon=True, name="edl-serve-heartbeat"
+        )
+        self._thread.start()
+
+    def _stop_heartbeats(self) -> None:
+        if self._stop_evt is not None:
+            self._stop_evt.set()
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout=10)
+
+    def _beat_once(self) -> None:
+        try:
+            self.coordinator.heartbeat(self.replica_id)
+        except KeyError:
+            # Evicted while alive (a lease outlived): rejoin, as a
+            # trainer does.
+            try:
+                self.coordinator.register(self.replica_id, address=self.address)
+            except Exception:
+                pass
+        except Exception:
+            pass  # coordinator unreachable: retry at the next beat
+
+    def tick(self) -> None:
+        """One synchronous heartbeat (tests, single-threaded drivers)."""
+        self._beat_once()
+
+
 def build_replica(
     entrypoint: str = "transformer_lm",
     device=None,
@@ -328,41 +638,117 @@ def build_replica(
     return engine, batcher, gen, server
 
 
+def serve_run(
+    entrypoint: str = "",
+    coordinator_addr: str = "",
+    checkpoint_dir: str = "",
+    port: int = 0,
+    max_batch: int = 0,
+    queue_limit: int = 0,
+    deadline_ms: int = 0,
+    pod_address: str = "",
+    replica_id: str = "",
+    device=None,
+    host: str = "0.0.0.0",
+    **model_kwargs,
+) -> ServingReplica:
+    """Build and start one checkpoint-backed replica from the arguments
+    and the ``EDL_SERVE_*`` pod env contract (``launcher.env_config``):
+    a ``HostDRAMStore`` over the durable checkpoint directory, the
+    engine (``DecodeEngine`` for a model with a decode contract), both
+    batchers and the HTTP front, registered with the serving
+    coordinator when an address is given.  ``device`` defaults to CUDA
+    and raises where there is none.  Returns the started replica; the
+    caller owns its lifetime."""
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.launcher import env_config
+    from edl_tpu_torch.models.base import get_model
+    from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+    from edl_tpu_torch.serving.batcher import TokenContinuousBatcher
+    from edl_tpu_torch.serving.engine import DecodeEngine, InferenceEngine
+
+    cfg = env_config()
+    model = get_model(entrypoint or cfg["entrypoint"] or "transformer_lm", **model_kwargs)
+    spill = checkpoint_dir or cfg["checkpoint_dir"]
+    store = HostDRAMStore(spill_dir=spill or None)
+    max_batch = max_batch or cfg["serve_max_batch"]
+    if model.decode is not None:
+        engine = DecodeEngine(model, device=device, max_batch=max_batch, store=store)
+    else:
+        engine = InferenceEngine(model, device=device, max_batch=max_batch, store=store)
+    queue_limit = queue_limit or cfg["serve_queue_limit"]
+    batcher = ContinuousBatcher(
+        engine, queue_limit=queue_limit,
+        default_deadline_s=(deadline_ms or cfg["serve_deadline_ms"]) / 1000.0,
+    )
+    gen = None
+    if model.decode is not None:
+        gen = TokenContinuousBatcher(engine, queue_limit=queue_limit)
+    server = ServingServer(batcher, host=host, port=port or cfg["serve_port"], gen_batcher=gen)
+    coordinator = None
+    if coordinator_addr or cfg["coordinator_addr"]:
+        coordinator = HTTPCoordinator(coordinator_addr or cfg["coordinator_addr"])
+    replica = ServingReplica(
+        engine, batcher, server, coordinator=coordinator,
+        replica_id=replica_id or cfg["pod_name"],
+        address=pod_address or cfg["pod_address"],
+        gen_batcher=gen,
+        drain_budget_s=cfg["serve_drain_ms"] / 1000.0,
+    )
+    return replica.start()
+
+
 def main(argv=None):  # pragma: no cover - pod entrypoint
     import argparse
     import signal
     import sys
 
     p = argparse.ArgumentParser(description="edl_tpu_torch serving replica")
-    p.add_argument("--entrypoint", default="transformer_lm", help="registered model name")
+    p.add_argument("--entrypoint", default="", help="registered model name")
+    p.add_argument("--coordinator", default="", help="serving coordinator host:port")
+    p.add_argument("--checkpoint-dir", default="", help="the trainer's durable checkpoint dir")
     p.add_argument("--port", type=int, default=0)
-    p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--seed", type=int, default=0, help="seed of the served weights")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--max-batch", type=int, default=0)
+    p.add_argument("--queue-limit", type=int, default=0)
+    p.add_argument("--deadline-ms", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--max-seqs", type=int, default=8)
-    p.add_argument("--block-tokens", type=int, default=16)
+    p.add_argument("--tiny", action="store_true", help="the model's tiny configuration")
     args = p.parse_args(argv)
-    engine, batcher, gen, server = build_replica(
-        args.entrypoint, device=args.device, seed=args.seed, port=args.port,
-        host=args.host, max_seqs=args.max_seqs, block_tokens=args.block_tokens,
+    replica = serve_run(
+        entrypoint=args.entrypoint, coordinator_addr=args.coordinator,
+        checkpoint_dir=args.checkpoint_dir, port=args.port, host=args.host,
+        max_batch=args.max_batch, queue_limit=args.queue_limit,
+        deadline_ms=args.deadline_ms, device=args.device,
+        **({"tiny": True} if args.tiny else {}),
     )
     print(
-        f"edl_tpu_torch serving {engine.model.name} on {engine.device} "
-        f"port {server.port}",
+        f"edl_tpu_torch serving replica {replica.replica_id} "
+        f"({replica.engine.model.name}, weights step "
+        f"{replica.engine.weights_step}) on {replica.engine.device} "
+        f"port {replica.server.port}",
         flush=True,
     )
+    # SIGTERM (a pod's deletion): drain — close admission, finish what
+    # is in flight, free the KV blocks, deregister — then exit.  The
+    # drain runs once, on its own thread: a second signal must not
+    # re-enter it from inside the first one's frame.
     done = threading.Event()
+    leaving = threading.Event()
+
+    def _leave():
+        replica.drain()
+        replica.stop()
+        done.set()
 
     def _terminate(signum, frame):
-        done.set()
+        if not leaving.is_set():
+            leaving.set()
+            threading.Thread(target=_leave, name="edl-serve-leave").start()
 
     signal.signal(signal.SIGTERM, _terminate)
     signal.signal(signal.SIGINT, _terminate)
     done.wait()
-    server.stop()
-    if gen is not None:
-        gen.stop()
-    batcher.stop()
     sys.exit(0)
 
 

@@ -117,6 +117,106 @@ CATALOG = {
         ),
         "labels": (),
     },
+    # -- chunked prefill, the prefix cache ------------------------------------
+    "edl_serve_prefill_chunks_total": {
+        "type": "counter",
+        "help": "Prefill chunk dispatches: block-aligned prompt slices "
+        "fed beside the decode step under the per-iteration token "
+        "budget.",
+        "labels": (),
+    },
+    "edl_serve_prefill_tokens_total": {
+        "type": "counter",
+        "help": "Prompt tokens prefilled through chunk dispatches "
+        "(true tokens, bucket padding excluded).",
+        "labels": (),
+    },
+    "edl_serve_prefill_queued_tokens": {
+        "type": "gauge",
+        "help": "Prompt tokens still awaiting prefill (queued prompts "
+        "+ the chunk FIFO's remaining work): the chunked-admission "
+        "backpressure signal.",
+        "labels": (),
+    },
+    "edl_serve_prefill_stall_seconds": {
+        "type": "histogram",
+        "help": "Time one scheduler iteration's admission/prefill work "
+        "held up an already-running decode batch (observed only on "
+        "iterations where both sides were live).",
+        "buckets": (
+            0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+            0.25, 0.5, 1.0, 2.5,
+        ),
+        "labels": (),
+    },
+    "edl_serve_kv_used_bytes_per_device": {
+        "type": "gauge",
+        "help": "KV bytes the serving device holds for blocks owned by "
+        "live sequences (owned blocks times the bytes of one block).",
+        "labels": (),
+    },
+    "edl_serve_prefix_hits_total": {
+        "type": "counter",
+        "help": "Admissions whose prompt matched a published prefix "
+        "run in the KV prefix cache: the sequence skipped straight to "
+        "its first cold block.",
+        "labels": (),
+    },
+    "edl_serve_prefix_misses_total": {
+        "type": "counter",
+        "help": "Admissions that walked the prefix chain and matched "
+        "nothing (prompts too short to span one block are not "
+        "counted: they are uncacheable, not missed).",
+        "labels": (),
+    },
+    "edl_serve_prefix_blocks_reused_total": {
+        "type": "counter",
+        "help": "KV blocks claimed by a refcount instead of being "
+        "allocated and prefilled (each is one block of prompt compute "
+        "the replica never paid).",
+        "labels": (),
+    },
+    "edl_serve_prefix_evictions_total": {
+        "type": "counter",
+        "help": "Refcount-0 cached prefix blocks evicted back to the "
+        "free list (LRU, under allocation pressure).",
+        "labels": (),
+    },
+    "edl_serve_prefix_hit_ratio": {
+        "type": "gauge",
+        "help": "Running hits / (hits + misses) of the prefix cache "
+        "since the batcher started (invalidations do not reset it).",
+        "labels": (),
+    },
+    # -- the checkpoint-backed replica: hot swap, drain ------------------------
+    "edl_serve_swap_rejected_total": {
+        "type": "counter",
+        "help": "Candidate checkpoints rejected at a load or hot-swap "
+        "attempt (CRC verification failed, unreadable durable spill, "
+        "or leaves that do not fit the model): the engine keeps "
+        "serving the old weights.",
+        "labels": (),
+    },
+    "edl_serve_draining": {
+        "type": "gauge",
+        "help": "Per-replica drain state: 0 serving, 1 draining "
+        "(admission closed, in-flight finishing), 2 drained "
+        "(deregistered, ready to exit).",
+        "labels": ("replica",),
+    },
+    "edl_serve_drains_total": {
+        "type": "counter",
+        "help": "Graceful drains started on this replica (POST /drain "
+        "or SIGTERM).",
+        "labels": (),
+    },
+    "edl_serve_drain_seconds": {
+        "type": "histogram",
+        "help": "Seconds from admission close to drained (every "
+        "in-flight single-shot request and decode sequence finished, "
+        "KV blocks freed, replica deregistered).",
+        "labels": (),
+    },
     # -- the elastic training runtime (ElasticTrainer, stager, ledger) -------
     "edl_steps_total": {
         "type": "counter",

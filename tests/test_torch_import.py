@@ -32,6 +32,10 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'edl_tpu_torch.serving.server' in names, names\n"
+        "assert 'edl_tpu_torch.serving.prefix' in names, names\n"
+        "from edl_tpu_torch.serving.prefix import PrefixCache, chain_hashes\n"
+        "from edl_tpu_torch.serving.server import ServingReplica, serve_run, main\n"
+        "from edl_tpu_torch.serving import DrainingError\n"
         "import edl_tpu_torch.runtime.elastic, edl_tpu_torch.launcher\n"
         "import edl_tpu_torch.checkpoint.hostdram, edl_tpu_torch.checkpoint.transfer\n"
         "import edl_tpu_torch.consensus\n"
@@ -77,7 +81,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Trainer,
     )
     from edl_tpu_torch.serving import DecodeEngine, InferenceEngine, KVBlockPool
-    from edl_tpu_torch.serving.server import build_replica
+    from edl_tpu_torch.serving.server import ServingReplica, build_replica, serve_run
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = get_model("transformer_lm", tiny=True)
@@ -89,6 +93,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: InferenceEngine(model),
         lambda: KVBlockPool(1, 1, 16, 2, 16, torch.bfloat16),
         lambda: build_replica("transformer_lm", tiny=True),
+        lambda: DecodeEngine(model, store=HostDRAMStore()),
+        lambda: ServingReplica(DecodeEngine(model, store=HostDRAMStore())),
+        lambda: serve_run("transformer_lm", tiny=True),
         lambda: Trainer(model),
         lambda: ElasticTrainer(model, it, LocalCoordinator()),
         lambda: HostDRAMStore().restore(ckpt),

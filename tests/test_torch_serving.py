@@ -216,8 +216,13 @@ def test_queue_full_and_prompt_too_long_at_admission(lm):
             eng.coerce_prompt({"tokens": [4] * eng.max_context})
         with pytest.raises(ValueError, match="token ids"):
             eng.coerce_prompt({"tokens": [V]})
-        with pytest.raises(NotImplementedError, match="chunked"):
-            TokenContinuousBatcher(eng, chunked_prefill=True)
+        # the JAX batcher's defaults: chunked prefill with the prefix
+        # cache when the model declares a chunk_fn; the cache needs it
+        default = TokenContinuousBatcher(eng)
+        assert default.chunked_prefill and default.prefix is not None
+        assert gen.prefix is None
+        with pytest.raises(ValueError, match="chunked"):
+            TokenContinuousBatcher(eng, chunked_prefill=False, prefix_cache=True)
         gen.stop()
 
 
