@@ -5,8 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's serving and training paths and its elastic
-runtime on the card and exits non-zero on the first failure.  Phases, in order:
+It drives the port's serving and training paths, its elastic runtime
+and its serving fleet on the card and exits non-zero on the first
+failure.  Phases, in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -102,10 +103,35 @@ runtime on the card and exits non-zero on the first failure.  Phases, in order:
    with Retry-After, no block is owned, and the replica has left the
    coordinator's members.  Each part's launch counts are zeroed just
    before it and read just after.
-9. **Kernels line** — one JSON object listing every ported kernel with
-   its launches on the main path, error, times, bound, the shape timed,
-   the achieved TFLOP/s and the share of the bound.
-10. **Last line** — ``{"ok": true, "device": {...}}``.
+9. **Serving fleet** — a ``CoordinatorServer``, two ``ServingReplica``s
+   (A and B: ``DecodeEngine`` of 1025 blocks of 16, chunked posture,
+   ``HTTPCoordinator``, telemetry reports) loading one step-4 checkpoint
+   of the training configuration from a ``HostDRAMStore``, and the
+   router (``route_run``) in front; all traffic through the router's
+   port.  Spread and affinity: two groups of a 1536-token prefix with 4
+   tails each, 32 new tokens, streamed; the groups land on different
+   replicas, at least 3 of 4 of a group on its first request's replica
+   with 96 reused blocks each, tokens equal to the full recompute
+   (margin rule); the TTFT p50 through the router and straight to the
+   replica.  Drain with migration: a 1024-token prompt, 256 new tokens,
+   streamed to A; after 16 tokens a drain intent to the router, then
+   ``POST /drain {"migrate_to": B}`` on A: the ack comes with 0 in
+   flight while the stream is short of 256, the stream is whole and
+   equal bit for bit to the unmigrated run decoding alone on B, B's
+   imported blocks are A's exported bytes (65 blocks x 589,824 B), the
+   router steered before the drain started and absorbed no 503, A left
+   the coordinator; prints the drain, gather, push and import seconds
+   and GB/s beside the unmigrated run's last 240 tokens.  Re-drive: A
+   afresh and B in the monolithic posture; A dies (server severed,
+   batchers stopped, no drain) after 16 tokens of a stream; the router
+   resumes it on B from prompt + prefix: 12 ``flash_fwd`` for that
+   leg, no duplicate, drop or restart line, the recompute check; prints
+   the gap at the kill and the phase's peak memory.  Each part's launch
+   counts are zeroed just before it and read just after.
+10. **Kernels line** — one JSON object listing every ported kernel with
+    its launches on the main path, error, times, bound, the shape timed,
+    the achieved TFLOP/s and the share of the bound.
+11. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -215,6 +241,25 @@ REPLICA_SHORT_NEW = 64
 REPLICA_LONG = 1900
 REPLICA_LONG_AFTER = 8
 REPLICA_DRAIN_NEW = 64
+#: phase 9, the serving fleet: two replicas behind the router.  Spread
+#: and affinity: two groups of 4 prompts, each group one shared prefix of
+#: 96 blocks and tails of its own, 32 new tokens each; the router's and
+#: a replica's TTFT timed on 4 more warm prompts each.  Drain with
+#: migration: a 1024-token prompt, 256 new tokens, the drain after 16.
+#: Re-drive: a 1000-token prompt, 64 new tokens, the kill after 16
+FLEET_PREFIX_BLOCKS = 96
+FLEET_TAILS = (64, 96, 128, 160)
+FLEET_NEW = 32
+#: router-overhead pairs: one warm prompt (the group's prefix and a tail
+#: under one block, so every request reuses exactly the prefix's blocks)
+#: once through the router and once straight to the replica
+FLEET_TTFT_PAIRS = 32
+FLEET_MIGRATE_PROMPT = 1024
+FLEET_MIGRATE_NEW = 256
+FLEET_MIGRATE_AT = 16
+FLEET_REDRIVE_PROMPT = 1000
+FLEET_REDRIVE_NEW = 64
+FLEET_REDRIVE_AT = 16
 
 #: the first (WMMA) versions' times on the H100 (NVIDIA H100 80GB HBM3,
 #: 700 W; PERF.md section 6): B1 and B3 at [1, 32768, 12, 64], B2 at
@@ -2078,6 +2123,491 @@ def phase_serving_replica(card: str):
     return out
 
 
+def _stream(base, prompt, new_tokens, on_token=None):
+    """One streamed /generate against ``base`` (a replica or the
+    router): every line with its arrival time.  ``on_token(n)`` runs in
+    the reading thread after the n-th token line."""
+    body = {"inputs": {"tokens": [int(x) for x in prompt]}, "max_new_tokens": new_tokens,
+            "stream": True, "deadline_ms": 300000}
+    lines, t0 = [], time.perf_counter()
+    out = {"status": None, "lines": lines, "t0": t0}
+    try:
+        with _post(base + "/generate", body) as r:
+            out["status"] = r.status
+            ntok = 0
+            for raw in r:
+                if not raw.strip():
+                    continue
+                ev = json.loads(raw)
+                lines.append((time.perf_counter(), ev))
+                if "token" in ev:
+                    ntok += 1
+                    if on_token is not None:
+                        on_token(ntok)
+    except Exception as e:  # recorded, then failed on by the caller
+        out["status"] = getattr(e, "code", out["status"])
+        out["error"] = repr(e)
+    toks = [ev for _, ev in lines if "token" in ev]
+    out["tokens"] = [ev["token"] for ev in toks]
+    out["indices"] = [ev["i"] for ev in toks]
+    out["done"] = lines[-1][1] if lines and lines[-1][1].get("done") else None
+    out["restarts"] = sum(1 for _, ev in lines if ev.get("restart"))
+    out["ttft_ms"] = (next(t for t, ev in lines if "token" in ev) - t0) * 1e3 if toks else None
+    return out
+
+
+def _stream_ok(res, new_tokens, what):
+    """A whole stream: its done line, no restart line, token indices
+    0..n-1 once each (nothing duplicated or dropped), and the done
+    line's tokens the streamed ones."""
+    if res.get("error") or res["status"] != 200 or res["done"] is None:
+        fail(f"{what}: the stream failed: status {res['status']}, {res.get('error')}, "
+             f"last lines {[ev for _, ev in res['lines'][-2:]]}")
+    if res["restarts"] or res["indices"] != list(range(new_tokens)):
+        fail(f"{what}: {res['restarts']} restart lines, token indices {res['indices']}")
+    if res["done"]["tokens"] != res["tokens"]:
+        fail(f"{what}: the done line's tokens differ from the streamed ones")
+
+
+def _fleet_replica(engine, coord_addr, rid, chunked=True):
+    from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+    from edl_tpu_torch.serving import (
+        ContinuousBatcher,
+        ServingReplica,
+        ServingServer,
+        TokenContinuousBatcher,
+    )
+
+    server = ServingServer(ContinuousBatcher(engine), host="127.0.0.1", port=_free_port())
+    return ServingReplica(
+        engine, server=server, coordinator=HTTPCoordinator(coord_addr), replica_id=rid,
+        address=f"127.0.0.1:{server.port}", heartbeat_interval=0.1, telemetry_interval=0.2,
+        gen_batcher=TokenContinuousBatcher(engine, chunked_prefill=chunked),
+    ).start()
+
+
+def _record_admissions(replica, log_to):
+    """Note which replica admitted each prompt (its length and first
+    tokens) — the router itself does not say where it sent a request."""
+    gen = replica.gen_batcher
+    real = gen.submit_generate
+
+    def submit(inputs, *a, **k):
+        toks = list(inputs.get("tokens") or [])
+        log_to.append((replica.replica_id, len(toks), tuple(toks[:4]), tuple(toks[-4:])))
+        return real(inputs, *a, **k)
+
+    gen.submit_generate = submit
+
+
+def _wait_route(router_base, rid, address=None, timeout=30):
+    """Until the router's table shows ``rid`` healthy (at ``address``)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for r in _get(router_base + "/routes")["replicas"]:
+            if r["replica"] == rid and r["health"] == "healthy" and (
+                    address is None or r["address"] == address):
+                return r
+        if time.monotonic() > deadline:
+            fail(f"the router never listed {rid} healthy at {address}")
+        time.sleep(0.02)
+
+
+def phase_serving_fleet(card: str):
+    """The serving fleet at full width: two replicas behind the router,
+    a drain that migrates live KV, a killed replica's stream re-driven."""
+    import gc
+
+    import torch
+
+    from edl_tpu_torch import telemetry
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        LocalCoordinator,
+        ShardedDataIterator,
+        Trainer,
+        synthetic_dataset,
+    )
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+    from edl_tpu_torch.serving import DecodeEngine
+    from edl_tpu_torch.serving.router import route_run
+
+    model = get_model("transformer_lm")
+    spec = model.decode
+    vocab, layers = spec.vocab_size, spec.layers
+    # K and V of every layer for one block of 16 positions
+    block_bytes = (2 * layers * 16 * spec.heads * spec.head_dim
+                   * torch.empty((), dtype=spec.cache_dtype).element_size())
+    t_phase = time.perf_counter()
+    # the phase's wall time, part by part
+    out = {"card": card, "model": "transformer_lm", "parts_s": {}}
+    coord = LocalCoordinator(target_world=2, max_world=4)
+    cserver = CoordinatorServer(coord, host="127.0.0.1", port=0).start()
+    caddr = f"127.0.0.1:{cserver.port}"
+    reps, router, engines = {}, None, []
+    try:
+        # setup: one step-4 checkpoint in a HostDRAMStore, two replicas
+        # loading it, the router in front
+        trainer = Trainer(model, lr=TRAIN_LR, device="cuda", seed=SEED)
+        it = ShardedDataIterator(
+            synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH,
+            seed=SEED)
+        store = HostDRAMStore()
+        state, _ = _train_and_spill(trainer, trainer.init_state(), it, store, 4)
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out["parts_s"]["checkpoint"] = t0 - t_phase
+        engines = [DecodeEngine(model, device="cuda", max_seqs=8, block_tokens=16, store=store)
+                   for _ in range(2)]
+        admitted = []
+        for eng, rid in zip(engines, ("fleet-a", "fleet-b")):
+            reps[rid] = _fleet_replica(eng, caddr, rid)
+            _record_admissions(reps[rid], admitted)
+        router = route_run(caddr, port=_free_port(), host="127.0.0.1", probe_interval_s=0.1)
+        rbase = f"http://127.0.0.1:{router.port}"
+        for rid in reps:
+            _wait_route(rbase, rid)
+        out["start_s"] = out["parts_s"]["start"] = time.perf_counter() - t0
+        ea, eb = engines
+        a_base, b_base = (f"http://{reps[r].address}" for r in ("fleet-a", "fleet-b"))
+        if not (ea.weights_step == eb.weights_step == 4
+                and ea.pool.num_blocks == 8 * ea.blocks_per_seq + 1
+                and ea.pool.nbytes() // ea.pool.num_blocks == block_bytes):
+            fail(f"fleet: weights steps {ea.weights_step}/{eb.weights_step}, "
+                 f"{ea.pool.num_blocks} blocks of {ea.pool.nbytes() // ea.pool.num_blocks} B")
+
+        # 1. spread and affinity: each group's first request, then the
+        # other six at once, every one streamed through the router
+        rng = np.random.RandomState(SEED + 9)
+        bt = 16
+        prefixes = [rng.randint(3, vocab, size=FLEET_PREFIX_BLOCKS * bt) for _ in range(2)]
+        groups = [[np.concatenate([pre, rng.randint(3, vocab, size=n)]) for n in FLEET_TAILS]
+                  for pre in prefixes]
+        _reset_launches()
+        res = {}
+        first_a = {}
+
+        def first(g):
+            res[(g, 0)] = _stream(rbase, groups[g][0], FLEET_NEW,
+                                  on_token=lambda n: n == 1 and first_a.setdefault(g, True))
+
+        th = threading.Thread(target=first, args=(0,))
+        th.start()
+        deadline = time.monotonic() + 120
+        while not first_a.get(0):
+            if time.monotonic() > deadline or not th.is_alive() and not first_a.get(0):
+                fail(f"fleet spread: the first request never streamed: {res.get((0, 0))}")
+            time.sleep(0.002)
+        # the router's probe must see the first replica busy before the
+        # second group's first request goes out: then it goes elsewhere
+        while not any(r["in_flight"] > 0 for r in _get(rbase + "/routes")["replicas"]):
+            if time.monotonic() > deadline:
+                fail("fleet spread: the router never saw the busy replica")
+            time.sleep(0.005)
+        first(1)
+        th.join(timeout=300)
+        threads = [threading.Thread(target=lambda g=g, i=i: res.__setitem__(
+            (g, i), _stream(rbase, groups[g][i], FLEET_NEW))) for g in (0, 1) for i in (1, 2, 3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = _all_launches()
+        out["parts_s"]["spread"] = time.perf_counter() - t0 - out["parts_s"]["start"]
+        if any(launches.values()):
+            fail(f"fleet spread (chunked posture) launched {launches}")
+        where = {}
+        for rid, n, head, tail in admitted:
+            for g in (0, 1):
+                for i in range(4):
+                    p = groups[g][i]
+                    if n == len(p) and head == tuple(p[:4]) and tail == tuple(p[-4:]):
+                        where[(g, i)] = rid
+        placement, reused = {}, {}
+        for g in (0, 1):
+            for i in range(4):
+                _stream_ok(res[(g, i)], FLEET_NEW, f"fleet spread: group {g} request {i}")
+                reused[(g, i)] = res[(g, i)]["done"]["reused_blocks"]
+            home = where[(g, 0)]
+            on_home = [i for i in range(1, 4) if where.get((g, i)) == home]
+            placement[g] = {"replica": home, "followers_on_it": len(on_home),
+                            "at": [where.get((g, i)) for i in range(4)],
+                            "reused": [reused[(g, i)] for i in range(4)]}
+            if len(on_home) + 1 < 3 or any(reused[(g, i)] != FLEET_PREFIX_BLOCKS for i in on_home):
+                fail(f"fleet affinity: group {g} {placement[g]} (want >= 3 of 4 on "
+                     f"{home}, each follower there reusing {FLEET_PREFIX_BLOCKS} blocks)")
+        if {placement[0]["replica"], placement[1]["replica"]} != set(reps):
+            fail(f"fleet spread: both groups landed on one replica: {placement}")
+        prompts = [groups[g][i] for g in (0, 1) for i in range(4)]
+        served = [res[(g, i)]["tokens"] for g in (0, 1) for i in range(4)]
+        ttft = [res[(g, i)]["ttft_ms"] for g in (0, 1) for i in range(4)]
+        out["spread"] = {"placement": placement, "ttft_ms": ttft,
+                         "recompute": _recompute_check(ea, prompts, served)}
+        # router overhead on TTFT: pairs of one warm prompt of group 0,
+        # once through the router and once straight to the replica that
+        # holds its prefix, one request at a time, the order alternating
+        t_part = time.perf_counter()
+        home = placement[0]["replica"]
+        direct = f"http://{reps[home].address}"
+        pairs = []
+        for j in range(FLEET_TTFT_PAIRS):
+            p = np.concatenate([prefixes[0], rng.randint(3, vocab, size=rng.randint(1, bt))])
+            legs = ("router", "direct") if j % 2 == 0 else ("direct", "router")
+            got = {leg: _stream(rbase if leg == "router" else direct, p, 2) for leg in legs}
+            for leg, r in got.items():
+                _stream_ok(r, 2, f"fleet TTFT pair {j} ({leg})")
+                if r["done"]["reused_blocks"] != FLEET_PREFIX_BLOCKS:
+                    fail(f"fleet TTFT pair {j} ({leg}): {r['done']['reused_blocks']} reused "
+                         f"blocks, want {FLEET_PREFIX_BLOCKS} (the router left {home}?)")
+            pairs.append((got["router"]["ttft_ms"], got["direct"]["ttft_ms"]))
+        via, straight = np.array(pairs).T
+        diff = via - straight
+        out["ttft"] = {
+            "pairs": FLEET_TTFT_PAIRS, "reused_blocks_each": FLEET_PREFIX_BLOCKS,
+            "router_p50_ms": float(np.median(via)), "direct_p50_ms": float(np.median(straight)),
+            # router minus direct, pair by pair
+            "overhead_p50_ms": float(np.median(diff)),
+            "overhead_p10_p90_ms": [float(x) for x in np.percentile(diff, [10, 90])],
+            "overhead_min_max_ms": [float(diff.min()), float(diff.max())],
+            "router_ms": via.tolist(), "direct_ms": straight.tolist(),
+        }
+        out["parts_s"]["ttft"] = time.perf_counter() - t_part
+
+        # 2. drain with migration.  First the unmigrated run, alone on
+        # the survivor, then the same prompt through the router to A,
+        # drained onto B after 16 tokens
+        t_part = time.perf_counter()
+        mprompt = rng.randint(3, vocab, size=FLEET_MIGRATE_PROMPT)
+        times = []
+        ref_t = reps["fleet-b"].gen_batcher.submit_generate(
+            {"tokens": mprompt.tolist()}, max_new_tokens=FLEET_MIGRATE_NEW,
+            deadline_s=600.0,
+            on_event=lambda ev: "token" in ev and times.append(time.perf_counter()))
+        ref_tokens, _ = ref_t.result(timeout=600)
+        unmigrated_rest_s = times[-1] - times[FLEET_MIGRATE_AT - 1]
+        exported, imported, adopted = {}, {}, {}
+        gb = reps["fleet-b"].gen_batcher
+        real_export, real_import, real_adopt = ea.export_kv, eb.import_kv, gb.adopt
+
+        # The wrappers only time and keep references: the read-back of
+        # what landed on B comes after the drain's ack, off its clock.
+        def export_kv(ids):
+            # the device -> pinned host gather, waited on its event
+            t = time.perf_counter()
+            k, v = real_export(ids)
+            exported.update(blocks=len(ids), k=k, v=v, s=time.perf_counter() - t)
+            return k, v
+
+        def import_kv(ids, k, v):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            t = time.perf_counter()
+            ev[0].record()
+            real_import(ids, k, v)
+            ev[1].record()
+            # k and v view the receiver's own buffer for this push
+            imported.update(ids=list(ids), k=k, v=v, s=time.perf_counter() - t, events=ev)
+
+        def adopt(t, *a):
+            adopted.update(t=t, length=int(t.length))
+            return real_adopt(t, *a)
+
+        ea.export_kv, eb.import_kv, gb.adopt = export_kv, import_kv, adopt
+        drain = {}
+
+        def read_back():
+            """B's adopted blocks, read while the sequence still decodes
+            there: every position written before the freeze (decode
+            writes only later ones) against the bytes handed to the
+            import."""
+            with gb.frozen():
+                t, ids = adopted.get("t"), imported.get("ids")
+                held = t is not None and (t in gb._active
+                                          or any(e[0] is t for e in gb._adopted))
+                if not held or ids is None or t.blocks[:len(ids)] != ids:
+                    return None
+                rk, rv = eb.export_kv(ids)
+            n = adopted["length"]
+
+            def positions(x):  # [layers, n, bt, heads, hd] -> the first n positions
+                y = x.view(torch.int16)
+                return y.reshape(y.shape[0], -1, *y.shape[3:])[:, :n]
+
+            return all(torch.equal(positions(r), positions(g))
+                       for r, g in ((rk, imported["k"]), (rv, imported["v"])))
+        retries0 = telemetry.get_registry().counter("edl_route_retries_total").value(
+            reason="draining")
+
+        def drain_a():
+            with _post(rbase + "/drain_intent", {"replicas": ["fleet-a"]}) as r:
+                r.read()
+            t = time.perf_counter()
+            with _post(a_base + "/drain", {"budget_ms": 60000, "migrate_to": reps[
+                    "fleet-b"].address}) as r:
+                drain["ack"] = json.loads(r.read())
+            drain["s"] = time.perf_counter() - t
+            drain["tokens_at_ack"] = ntok_seen[0]
+            drain["read_back"] = read_back()
+
+        ntok_seen = [0]
+        drainer = threading.Thread(target=drain_a)
+
+        def at_token(n):
+            ntok_seen[0] = n
+            if n == FLEET_MIGRATE_AT:
+                drainer.start()
+
+        _reset_launches()
+        migrated = _stream(rbase, mprompt, FLEET_MIGRATE_NEW, on_token=at_token)
+        drainer.join(timeout=120)
+        launches = _all_launches()
+        ea.__dict__.pop("export_kv", None)
+        eb.__dict__.pop("import_kv", None)
+        gb.__dict__.pop("adopt", None)
+        torch.cuda.synchronize()
+        _stream_ok(migrated, FLEET_MIGRATE_NEW, "fleet drain: the migrated stream")
+        ack = drain.get("ack") or fail(f"fleet drain: no ack ({drain})")
+        mig = ack.get("migrate") or {}
+        if not (ack["drained"] and ack["in_flight"] == 0 and mig.get("migrated") == 1
+                and drain["tokens_at_ack"] < FLEET_MIGRATE_NEW):
+            fail(f"fleet drain: ack {ack} with {drain['tokens_at_ack']} tokens streamed")
+        if [a[0] for a in admitted if a[2] == tuple(mprompt[:4])] != ["fleet-b", "fleet-a"]:
+            fail(f"fleet drain: the prompt was admitted by {admitted[-2:]}, want fleet-a "
+                 "(after the survivor's unmigrated run)")
+        if migrated["tokens"] != ref_tokens:
+            first_diff = next(i for i, (x, y) in enumerate(zip(migrated["tokens"], ref_tokens))
+                              if x != y)
+            fail(f"fleet drain: the migrated stream differs from the unmigrated run from "
+                 f"token {first_diff}")
+        # A's gather, byte for byte, is what reached B's import, and what
+        # landed in B's pool
+        if not (exported and imported and exported["blocks"] == len(imported["ids"])
+                and torch.equal(exported["k"].view(torch.int16), imported["k"].view(torch.int16))
+                and torch.equal(exported["v"].view(torch.int16), imported["v"].view(torch.int16))):
+            fail("fleet drain: the survivor's import was not handed the exported bytes")
+        if drain.get("read_back") is not True:
+            fail(f"fleet drain: B's pool after adoption {drain.get('read_back')} (True: its "
+                 f"{adopted.get('length')} written positions are the exported bytes)")
+        import_device_s = imported["events"][0].elapsed_time(imported["events"][1]) / 1e3
+        nblk = exported["blocks"]
+        # the drain goes out when the client sees token 16: the freeze
+        # lands after token 16 or 17 (1039 or 1040 positions written: 65
+        # blocks), or 18 if the drain came a decode step late (66)
+        want_blk = -(-(FLEET_MIGRATE_PROMPT + FLEET_MIGRATE_AT) // bt)
+        if mig["bytes"] != nblk * block_bytes or not want_blk <= nblk <= want_blk + 1:
+            fail(f"fleet drain: {mig['bytes']} bytes for {nblk} blocks of {block_bytes} B "
+                 f"(want {want_blk} blocks, {want_blk + 1} if the freeze came a token late)")
+        if any(launches.values()):
+            fail(f"fleet drain (chunked posture) launched {launches}")
+        steers = [e for e in telemetry.get_recorder().events() if e.kind == "route.steer"
+                  and e.data.get("replica") == "fleet-a"]
+        starts = [e for e in telemetry.get_recorder().events() if e.kind == "serve.drain"
+                  and e.data.get("replica") == "fleet-a" and e.data.get("phase") == "start"]
+        retries = telemetry.get_registry().counter("edl_route_retries_total").value(
+            reason="draining") - retries0
+        if not (steers and starts and steers[0].seq < starts[0].seq) or retries:
+            fail(f"fleet drain: the router steered at {[e.seq for e in steers]}, the drain "
+                 f"started at {[e.seq for e in starts]}, {retries} 503s absorbed")
+        deadline = time.monotonic() + 10
+        while "fleet-a" in coord.members():
+            if time.monotonic() > deadline:
+                fail(f"fleet drain: fleet-a still registered: {coord.members()}")
+            time.sleep(0.01)
+        after = [_stream(rbase, p, 8) for p in groups[0][:2]]
+        for r in after:
+            _stream_ok(r, 8, "fleet drain: a request after the drain")
+        try:
+            _post(a_base + "/generate", {"inputs": {"tokens": [5, 6]}, "max_new_tokens": 2})
+            fail("fleet drain: the drained replica still admits")
+        except urllib.error.HTTPError as e:
+            if e.code != 503:
+                fail(f"fleet drain: the drained replica answered {e.code}, want 503")
+        out["drain"] = {
+            "seconds": drain["s"], "ack": ack, "tokens_at_ack": drain["tokens_at_ack"],
+            "blocks": nblk, "bytes": mig["bytes"], "block_bytes": block_bytes,
+            # freeze -> every sequence snapshotted (gather, block-major
+            # copy, leaf crc32s); connect -> the survivor's adoption ack;
+            # the gather and the import alone, each waited on the card
+            "freeze_export_s": mig["export_s"], "push_s": mig["push_s"],
+            # the import: the call's host wall (what the push waits for)
+            # and the card's time between events around it
+            "gather_s": exported["s"], "import_s": imported["s"],
+            "import_device_s": import_device_s,
+            "gather_gb_s": mig["bytes"] / exported["s"] / 1e9,
+            "push_gb_s": mig["bytes"] / mig["push_s"] / 1e9,
+            "import_gb_s": mig["bytes"] / import_device_s / 1e9,
+            "read_back_positions": adopted["length"],
+            "unmigrated_rest_s": unmigrated_rest_s,
+            "unmigrated_rest_tokens": FLEET_MIGRATE_NEW - FLEET_MIGRATE_AT,
+            "bit_identical": True, "kv_round_trip": True, "kv_in_pool": True,
+            "steer_seq": steers[0].seq, "drain_start_seq": starts[0].seq,
+            "absorbed_503s": retries, "requests_after": [r["status"] for r in after],
+        }
+
+        out["parts_s"]["drain"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # 3. re-drive: A afresh and B, both monolithic; A dies mid-stream
+        reps.pop("fleet-a").stop()
+        reps["fleet-a"] = _fleet_replica(ea, caddr, "fleet-a", chunked=False)
+        _record_admissions(reps["fleet-a"], admitted)
+        gb = reps["fleet-b"].gen_batcher
+        with gb.frozen():
+            gb.chunked_prefill = False
+        _wait_route(rbase, "fleet-a", reps["fleet-a"].address)
+        rprompt = rng.randint(3, vocab, size=FLEET_REDRIVE_PROMPT)
+        kill = {}
+
+        def at_kill(n):
+            if n == FLEET_REDRIVE_AT:
+                kill["t"] = time.perf_counter()
+                kill["before"] = _all_launches()
+                _reset_launches()
+                reps["fleet-a"].die()
+
+        _reset_launches()
+        redriven = _stream(rbase, rprompt, FLEET_REDRIVE_NEW, on_token=at_kill)
+        torch.cuda.synchronize()
+        leg = _all_launches()
+        _stream_ok(redriven, FLEET_REDRIVE_NEW, "fleet re-drive")
+        legs = [a for a in admitted if a[2] == tuple(rprompt[:4])]
+        if [a[0] for a in legs] != ["fleet-a", "fleet-b"]:
+            fail(f"fleet re-drive: admissions {legs}, want fleet-a then fleet-b")
+        resumed_len = legs[-1][1]
+        if redriven["done"].get("redriven") != 1 or resumed_len <= len(rprompt):
+            fail(f"fleet re-drive: done line {redriven['done']}, resumed prompt {resumed_len}")
+        if kill["before"]["flash_fwd"] != layers or leg["flash_fwd"] != layers:
+            fail(f"fleet re-drive: flash_fwd launched {kill['before']['flash_fwd']} for A's "
+                 f"prefill and {leg['flash_fwd']} for the resumed one (want {layers} each)")
+        t_after = [t for t, ev in redriven["lines"] if "token" in ev and t > kill["t"]]
+        t_before = [t for t, ev in redriven["lines"] if "token" in ev and t <= kill["t"]]
+        out["redrive"] = {
+            "resumed_prompt": resumed_len, "tokens_before_kill": len(t_before),
+            "gap_ms": (t_after[0] - t_before[-1]) * 1e3,
+            "launches_a_prefill": kill["before"], "launches_resumed_leg": leg,
+            "recompute": _recompute_check(eb, [rprompt], [redriven["tokens"]]),
+        }
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        out["routes"] = _get(rbase + "/routes")
+        out["parts_s"]["redrive"] = time.perf_counter() - t_part
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if router is not None:
+            router.stop()
+        for r in reps.values():
+            if not r._dead:
+                r.stop()
+        cserver.stop()
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"serving_fleet": out})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -2101,6 +2631,7 @@ def main() -> int:
     long_training = phase_longcontext_training()
     phase_elastic(card)
     phase_serving_replica(card)
+    phase_serving_fleet(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

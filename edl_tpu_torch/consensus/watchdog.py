@@ -12,9 +12,10 @@ harvest path, where the shared ``_absorb_step_failure`` recovery buries
 the world and holds for a fresh generation instead of hanging until the
 job's timeout.
 
-The JAX package's chaos probe (``consensus.watchdog.trip``), its
-flight-recorder event and the reuser hooks of its serving dispatch
-watchdog are not ported yet.
+The serving engine reuses the deadline machinery for its dispatch
+watchdog through ``on_trip``, which replaces the consensus trip counter
+with the reuser's own accounting.  The JAX package's chaos probe
+(``consensus.watchdog.trip``) is not ported (chaos is not).
 """
 
 from __future__ import annotations
@@ -33,9 +34,19 @@ class CollectiveTimeout(RuntimeError):
 class CollectiveWatchdog:
     """Deadline-guarded fetches.  ``timeout <= 0`` disables the guard
     (fetches run inline — the single-process default, where a wedge is
-    impossible and the thread hop would be pure overhead)."""
+    impossible and the thread hop would be pure overhead).
 
-    def __init__(self, timeout: float = 0.0, registry=None):
+    ``on_trip(what, waited)``: a reuser outside the consensus lane (the
+    serving engine's dispatch watchdog) keeps the deadline machinery but
+    counts its trips under its own names instead of the consensus
+    counter."""
+
+    def __init__(
+        self,
+        timeout: float = 0.0,
+        registry=None,
+        on_trip: Optional[Callable[[str, float], None]] = None,
+    ):
         from edl_tpu_torch import telemetry
 
         self.timeout = timeout
@@ -43,6 +54,7 @@ class CollectiveWatchdog:
         self._m_trips = self.registry.counter(
             "edl_consensus_watchdog_trips_total"
         )
+        self.on_trip = on_trip
         self.trips = 0
         self._lock = threading.Lock()
         self._q: Optional[queue.SimpleQueue] = None
@@ -97,7 +109,10 @@ class CollectiveWatchdog:
         if not done.wait(self.timeout):
             self._abandon_worker()
             self.trips += 1
-            self._m_trips.inc()
+            if self.on_trip is not None:
+                self.on_trip(what, self.timeout)
+            else:
+                self._m_trips.inc()
             raise CollectiveTimeout(
                 f"{what} future missed the {self.timeout}s collective "
                 "watchdog deadline (wedged allreduce? peer stood down "

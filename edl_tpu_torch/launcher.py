@@ -40,13 +40,12 @@ def env_config() -> dict:
     ``EDL_DIST_PORT``: the base port of the per-generation
     ``torch.distributed`` rendezvous), and keys of parts not ported yet:
     ``EDL_SHARD_ONLY`` (the checkpoint fabric), ``EDL_PARALLELISM``
-    (mesh layouts), ``EDL_FLIGHT_RECORDER_FILE``, ``EDL_CHAOS_SPEC``,
-    ``EDL_TELEMETRY_INTERVAL``, the serving pod's
+    (mesh layouts), ``EDL_FLIGHT_RECORDER_FILE`` and ``EDL_CHAOS_SPEC``.
+    The serving pod's keys (``serving.server.serve_run``) are ported,
+    with ``EDL_SERVE_DRAIN_MS``, the drain budget, which the JAX package
+    reads in ``serve_run`` itself; the engine reads
     ``EDL_SERVE_DISPATCH_TIMEOUT`` (the dispatch watchdog) and the
-    router pod's ``EDL_ROUTE_*`` keys.  The serving pod's keys
-    (``serving.server.serve_run``) are ported, with
-    ``EDL_SERVE_DRAIN_MS``, the drain budget, which the JAX package
-    reads in ``serve_run`` itself."""
+    router pod its ``EDL_ROUTE_*`` keys (``serving.router.main``)."""
     e = os.environ
     return {
         "job_name": e.get("EDL_JOB_NAME", "local"),
@@ -75,6 +74,8 @@ def env_config() -> dict:
             else ""
         ),
         "history_file": e.get("EDL_HISTORY_FILE", ""),
+        # seconds between telemetry reports to the coordinator
+        "telemetry_interval": float(e.get("EDL_TELEMETRY_INTERVAL", "5.0")),
         # Serving-replica pod contract (serving.server.serve_run)
         "serve_port": int(e.get("EDL_SERVE_PORT", "7180")),
         "serve_max_batch": int(e.get("EDL_SERVE_MAX_BATCH", "64")),

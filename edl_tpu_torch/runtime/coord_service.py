@@ -10,9 +10,11 @@ a cluster).
 Run as a pod: ``python -m edl_tpu_torch.runtime.coord_service --port
 7164 --min-world 1 --max-world 8``.
 
-Not ported yet (they wait for the port's telemetry aggregation): the
-``/telemetry`` endpoint, ``report_telemetry`` and the Prometheus form
-of ``/metrics``; ``/metrics`` serves the coordinator snapshot as JSON.
+``GET /metrics`` serves Prometheus text (the coordinator snapshot as
+gauges merged with the members' telemetry); ``GET /metrics?format=json``
+serves the snapshot dict, which ``HTTPCoordinator.metrics()`` asks for.
+``POST /telemetry`` ingests a member's cumulative report and ``GET
+/telemetry`` serves the merge.
 """
 
 from __future__ import annotations
@@ -81,10 +83,19 @@ class CoordinatorServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _reply_text(self, text: str, code=200):
+                body = text.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
             def do_GET(self):
-                from urllib.parse import urlparse
+                from urllib.parse import parse_qs, urlparse
 
                 u = urlparse(self.path)
+                query = parse_qs(u.query)
                 if u.path == "/plan":
                     self._reply({"plan": _plan_to_dict(coord.plan())})
                 elif u.path == "/members":
@@ -92,7 +103,14 @@ class CoordinatorServer:
                 elif u.path == "/target":
                     self._reply({"world": coord.target_world()})
                 elif u.path == "/metrics":
-                    self._reply(coord.metrics())
+                    # Prometheus text by default; ?format=json keeps the
+                    # snapshot dict (HTTPCoordinator.metrics reads it).
+                    if query.get("format", [""])[0] == "json":
+                        self._reply(coord.metrics())
+                    else:
+                        self._reply_text(coord.metrics_text())
+                elif u.path == "/telemetry":
+                    self._reply(coord.telemetry())
                 elif u.path == "/healthz":
                     self._reply({"ok": True})
                 else:
@@ -153,6 +171,18 @@ class CoordinatorServer:
                             )
                         except TypeError:
                             coord.set_prewarm(req["world"])
+                        self._reply({"ok": True})
+                    elif self.path == "/telemetry":
+                        # A member's cumulative snapshot and an event
+                        # tail, idempotent by (trainer_id, boot, seq).
+                        coord.report_telemetry(
+                            req["trainer_id"],
+                            snapshot=req.get("snapshot"),
+                            seq=int(req.get("seq", 0)),
+                            events=req.get("events"),
+                            boot=str(req.get("boot", "")),
+                            clock=req.get("clock"),
+                        )
                         self._reply({"ok": True})
                     elif self.path == "/checkpoint":
                         coord.report_checkpoint(req["step"])
@@ -354,8 +384,66 @@ class HTTPCoordinator:
         return bool(self.metrics()["completed"])
 
     def metrics(self) -> dict:
-        """The coordinator snapshot as a dict."""
-        return self._get("/metrics")
+        """The coordinator snapshot as a dict (``GET
+        /metrics?format=json``; the bare path serves Prometheus text)."""
+        return self._get("/metrics?format=json")
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (``GET /metrics``)."""
+        import urllib.error
+        import zlib
+
+        from edl_tpu_torch.utils.retry import GiveUpError
+
+        url = f"{self.address}/metrics"
+        try:
+            return self.retry_policy.run(
+                lambda: self._open(url).decode(),
+                retryable=lambda e: not isinstance(e, urllib.error.HTTPError),
+                seed=zlib.crc32(self.address.encode()),
+                describe="coordinator metrics scrape",
+            )
+        except GiveUpError as e:
+            raise ConnectionError(
+                f"coordinator unreachable after {e.attempts} tries"
+            ) from e.last_error
+
+    def report_telemetry(
+        self,
+        trainer_id: str,
+        snapshot: Optional[dict] = None,
+        seq: int = 0,
+        events: Optional[list] = None,
+        boot: str = "",
+        clock: Optional[dict] = None,
+    ):
+        """One attempt, no backoff (unlike every other call): the report
+        is cumulative and sent again every cadence anyway, and it runs
+        on the member's heartbeat thread, where a retry storm could
+        outlast the membership lease.  ``clock`` defaults to this
+        client's own heartbeat-fed offset estimate."""
+        if clock is None:
+            off = self.clock_estimator.offset()
+            if off is not None:
+                clock = {"offset": off, "rtt": self.clock_estimator.rtt()}
+        payload = {
+            "trainer_id": trainer_id,
+            "snapshot": snapshot,
+            "seq": seq,
+            "events": events,
+            "boot": boot,
+            "clock": clock,
+        }
+        req = urllib.request.Request(
+            f"{self.address}/telemetry",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+            method="POST",
+        )
+        json.loads(self._open(req))
+
+    def telemetry(self) -> dict:
+        return self._get("/telemetry")
 
     def evict_dead(self) -> List[str]:
         return self._post("/evict_dead")["evicted"]

@@ -16,10 +16,11 @@ world, restore — ``runtime/elastic.py``).  ``LocalCoordinator`` is the
 in-process implementation; ``runtime/coord_service.py`` speaks the same
 interface over HTTP.
 
-Not ported yet: the JAX coordinator's telemetry aggregation
-(``report_telemetry``, ``telemetry()``, the merged Prometheus
-``metrics_text``) and its flight recorder (``coord.*`` events).  Plans
-still carry causal-trace ids.
+Members also ship cumulative telemetry snapshots and flight-recorder
+tails (``report_telemetry``); ``telemetry()`` serves the merge, and
+``metrics_text`` renders it with the coordinator snapshot as Prometheus
+text.  Plan rebuilds and evictions are journaled in the coordinator's
+own flight recorder (``coord.*`` events).  Plans carry causal-trace ids.
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ import time
 import uuid
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
+
+from edl_tpu_torch.telemetry import (
+    FlightRecorder,
+    TelemetryAggregator,
+    coord_snapshot_gauges,
+    merge_snapshots,
+    render_prometheus,
+)
 
 
 
@@ -178,6 +187,14 @@ class LocalCoordinator:
         #: set when a trainer reports the job finished its passes
         self._completed = False
         self._completed_step = -1
+        #: cluster-wide telemetry: members POST cumulative registry
+        #: snapshots on their heartbeat cadence; the merge is
+        #: idempotent, so a restarted coordinator reconverges as soon as
+        #: each live member's next report lands
+        self._telemetry = TelemetryAggregator(clock=self._clock)
+        #: coordinator-side flight recorder: plan rebuilds, evictions,
+        #: and the event tails members ship with their reports
+        self._recorder = FlightRecorder(capacity=1024)
 
     # -- membership (trainer-facing) ----------------------------------------
     def register(
@@ -340,7 +357,18 @@ class LocalCoordinator:
             ]
             for tid in dead:
                 del self._members[tid]
+                # Lease expiry evicts the telemetry too: a dead replica's
+                # frozen snapshot would otherwise pin the merged gauges
+                # and haunt every quantile window.  A live-but-evicted
+                # member registers again and re-reports its cumulative
+                # snapshot, so the drop always reconverges.
+                self._telemetry.drop_source(tid)
             if dead:
+                self._recorder.record(
+                    "coord.evict",
+                    {"members": sorted(dead)},
+                    generation=self._generation,
+                )
                 self._rebuild_plan("evict")
             return dead
 
@@ -418,6 +446,66 @@ class LocalCoordinator:
                 "completed": self._completed,
                 "completed_step": self._completed_step,
             }
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition: the coordinator snapshot as
+        gauges, merged with the members' reported telemetry (the JSON
+        shape stays behind ``?format=json``).  The aggregator read holds
+        the lock: a scrape can run beside a member's POST /telemetry,
+        and the aggregator has no lock of its own."""
+        with self._lock:
+            members = self._telemetry.merged()
+        merged = merge_snapshots([coord_snapshot_gauges(self.metrics()), members])
+        return render_prometheus(merged)
+
+    # -- telemetry (member-facing) ------------------------------------------
+    def report_telemetry(
+        self,
+        trainer_id: str,
+        snapshot: Optional[dict] = None,
+        seq: int = 0,
+        events: Optional[List[dict]] = None,
+        boot: str = "",
+        clock: Optional[dict] = None,
+    ) -> None:
+        """Ingest one member's cumulative telemetry report: the registry
+        snapshot (merged idempotently by (trainer_id, boot, seq): a
+        restarted member's fresh boot supersedes its dead incarnation's
+        high seq), a tail of its flight-recorder events, and its
+        clock-offset estimate."""
+        with self._lock:
+            fresh = self._telemetry.report(
+                trainer_id, snapshot or {}, seq, boot=boot, clock=clock
+            )
+        if fresh and events:
+            self._recorder.record(
+                "coord.telemetry",
+                {"source": trainer_id, "events": len(events)},
+            )
+            self._recorder.ingest(events, origin=trainer_id)
+
+    def telemetry(self) -> dict:
+        """Merged cluster telemetry, the derived goodput signals, the
+        recent flight events and the per-member clock offsets."""
+        with self._lock:
+            merged = self._telemetry.merged()
+            rate = self._telemetry.step_rate()
+            cost = self._telemetry.resize_cost_seconds(merged=merged)
+            goodput = self._telemetry.goodput(merged=merged)
+            sources = self._telemetry.sources()
+            offsets = self._telemetry.clock_offsets()
+        return {
+            "merged": merged,
+            "step_rate": rate,
+            "resize_cost_seconds": cost,
+            "goodput": goodput,
+            "sources": sources,
+            "clock_offsets": offsets,
+            "events": [e.to_dict() for e in self._recorder.events(256)],
+        }
+
+    def recorder(self) -> FlightRecorder:
+        return self._recorder
 
     def generation(self) -> int:
         with self._lock:
@@ -571,5 +659,16 @@ class LocalCoordinator:
                 "world_size": world,
                 "members": active,
             }
+        )
+        self._recorder.record(
+            "coord.plan",
+            {
+                "reason": reason,
+                "world_size": world,
+                "members": list(active),
+                "stop_step": stop_step,
+            },
+            generation=self._generation,
+            trace=trace,
         )
         self._lock.notify_all()

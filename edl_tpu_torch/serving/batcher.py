@@ -18,7 +18,14 @@ The hot-swap moment lives here too, between batches and at token
 boundaries (``engine.refresh()``): a dispatch in flight bound its
 weights when it started, so no output mixes weight generations.
 
-Chaos injection and live migration come with later slices.
+Live migration (``serving/migrate.py``) works through the token
+batcher's token-boundary hooks: ``frozen`` parks the worker while a
+drain reads the pool, ``detach`` / ``take_cold`` hand sequences off,
+``readmit`` takes one back, and ``adopt`` queues a migrated-in sequence
+for the worker to place at its next token boundary, after checking the
+weights it was produced under.
+
+Chaos injection is not ported.
 """
 
 from __future__ import annotations
@@ -27,11 +34,12 @@ import threading
 import time
 import traceback
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from edl_tpu_torch.serving.engine import NotReadyError
+from edl_tpu_torch.serving.engine import DispatchWedgedError, NotReadyError
 
 
 class QueueFullError(RuntimeError):
@@ -57,6 +65,13 @@ class DrainingError(RuntimeError):
                  "retry another replica", retry_after: float = 0.5):
         super().__init__(msg)
         self.retry_after = retry_after
+
+
+class FreezeTimeoutError(RuntimeError):
+    """``frozen()`` gave up: the worker did not park at a token boundary
+    within ``freeze_timeout`` (a call still running).  Nothing was read
+    or written under the freeze; the caller must not touch the pool or
+    the batch state."""
 
 
 class Ticket:
@@ -304,7 +319,7 @@ class GenerateTicket:
         "prompt", "max_new", "deadline", "eos_id", "enqueued", "on_event",
         "blocks", "table", "length", "last_token", "tokens", "restarts",
         "last_time", "prefilled", "chunks", "reused_blocks", "first_time",
-        "_done", "_result", "_error",
+        "migrated", "_done", "_result", "_error",
     )
 
     def __init__(
@@ -342,6 +357,10 @@ class GenerateTicket:
         #: wall time of the FIRST ever emitted token (a restart never
         #: moves it): TTFT spans enqueue to it, over every chunk
         self.first_time: Optional[float] = None
+        #: handed to a survivor replica (live KV migration or a cold
+        #: requeue): it no longer counts toward the local drain, and
+        #: its caller's future resolves through the relay
+        self.migrated = False
         self._done = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
@@ -468,10 +487,26 @@ class TokenContinuousBatcher:
         self._queued_tokens = 0
         self._prefilling_tokens = 0
         self._active: List[GenerateTicket] = []
+        #: sequences migrated in (K/V already imported into granted
+        #: blocks) awaiting adoption at the next token boundary:
+        #: (ticket, weights_step, weights_digest, cache_epoch) entries
+        self._adopted: deque = deque()
         self._stop = False
         #: admission closed (drain): submit_generate raises
         #: DrainingError; queued, prefilling and active sequences finish
         self._draining = False
+        #: the token-boundary freeze handshake (a migration's export):
+        #: the exporter raises _freeze_req, the worker parks and acks,
+        #: _resume releases it
+        self._freeze_req = threading.Event()
+        self._frozen_ack = threading.Event()
+        self._resume = threading.Event()
+        #: serializes frozen() callers (a drain's export racing an
+        #: import would otherwise share one handshake)
+        self._freeze_lock = threading.Lock()
+        #: seconds frozen() waits for the worker to park before it
+        #: raises FreezeTimeoutError
+        self.freeze_timeout = 30.0
         self._thread: Optional[threading.Thread] = None
         self._bound_gen = -1
         self._bound_step = -1
@@ -482,6 +517,7 @@ class TokenContinuousBatcher:
         from edl_tpu_torch import telemetry
 
         reg = telemetry.get_registry()
+        self.recorder = telemetry.get_recorder()
         self._m_requests = reg.counter("edl_serve_requests_total")
         self._m_tokens = reg.counter("edl_serve_tokens_total")
         self._m_prefills = reg.counter("edl_serve_prefills_total")
@@ -543,13 +579,21 @@ class TokenContinuousBatcher:
         return self._draining
 
     @property
-    def in_flight(self) -> int:
-        """Sequences admitted but not yet resolved: queued, mid-prefill
-        and in the decode batch.  A drain waits for it to reach 0; the
-        KV pool then holds no owned block (every finish path frees its
-        blocks the same iteration)."""
+    def adopted_count(self) -> int:
         with self._cv:
-            return len(self._queue) + len(self._prefilling) + len(self._active)
+            return len(self._adopted)
+
+    @property
+    def in_flight(self) -> int:
+        """Sequences admitted but not yet resolved: queued, mid-prefill,
+        in the decode batch and migrated in awaiting adoption.  A drain
+        waits for it to reach 0; the KV pool then holds no owned block
+        (every finish path frees its blocks the same iteration)."""
+        with self._cv:
+            return (
+                len(self._queue) + len(self._prefilling) + len(self._active)
+                + len(self._adopted)
+            )
 
     def close_admission(self) -> None:
         """Enter drain: later ``submit_generate`` calls raise
@@ -559,10 +603,166 @@ class TokenContinuousBatcher:
             self._draining = True
 
     def pending(self) -> List[GenerateTicket]:
-        """The tickets on this batcher's books: queued, mid-prefill and
-        decoding."""
+        """The tickets on this batcher's books: queued, mid-prefill,
+        decoding and awaiting adoption."""
         with self._cv:
-            return list(self._queue) + list(self._prefilling) + list(self._active)
+            return (
+                list(self._queue) + list(self._prefilling) + list(self._active)
+                + [e[0] for e in self._adopted]
+            )
+
+    # -- live KV sequence migration -------------------------------------------
+    @contextmanager
+    def frozen(self):
+        """Park the worker at a token boundary and hold it there while a
+        migration reads the pool and the batch state: no call can write
+        either until the block exits.  The worker resumes even if the
+        body raises; if the worker is not running, the state is already
+        still.  Raises ``FreezeTimeoutError`` (before the body runs) when
+        the worker does not park within ``freeze_timeout`` seconds."""
+        with self._freeze_lock:
+            if self._thread is None or not self._thread.is_alive():
+                yield
+                return
+            self._resume.clear()
+            self._frozen_ack.clear()
+            self._freeze_req.set()
+            with self._cv:
+                self._cv.notify_all()
+            if not self._frozen_ack.wait(timeout=self.freeze_timeout):
+                # The pools are written in place: reading them while a
+                # call may still be writing would hand out torn K/V.
+                self._freeze_req.clear()
+                self._resume.set()
+                raise FreezeTimeoutError(
+                    f"the decode worker did not park within "
+                    f"{self.freeze_timeout:g} s"
+                )
+            try:
+                yield
+            finally:
+                self._freeze_req.clear()
+                self._resume.set()
+
+    def detach(self, t: GenerateTicket) -> None:
+        """Take a decoding sequence out of the batch and free its blocks
+        (its K/V is already copied to the host).  The caller holds the
+        worker frozen."""
+        if t in self._active:
+            self._active.remove(t)
+        self._free_blocks(t)
+        t.migrated = True
+
+    def take_cold(self) -> List[GenerateTicket]:
+        """Detach every queued and half-prefilled sequence for a cold
+        handoff to a survivor: they streamed nothing, so a requeue there
+        prefills the prompt again, with no restart event and no claim on
+        the local drain.  The caller holds the worker frozen."""
+        out: List[GenerateTicket] = []
+        with self._cv:
+            while self._queue:
+                t = self._queue.popleft()
+                self._queued_tokens -= int(t.prompt.shape[0])
+                out.append(t)
+            self._g_depth.set(0)
+        while self._prefilling:
+            t = self._prefilling.popleft()
+            self._prefilling_tokens -= int(t.prompt.shape[0]) - t.prefilled
+            self._free_blocks(t)
+            t.prefilled = 0
+            t.reused_blocks = 0
+            out.append(t)
+        for t in out:
+            t.migrated = True
+        return out
+
+    def readmit(self, t: GenerateTicket) -> None:
+        """The fallback ladder's last rung: no survivor took the
+        sequence, so it returns to the local queue and the drain waits
+        it out.  Streamed tokens are void: it prefills again under the
+        local weights."""
+        t.migrated = False
+        if t.tokens:
+            t.restarts += 1
+            self.stats["restarts"] += 1
+            self._m_restarts.inc()
+            t._event({"restart": True, "reason": "migration failed"})
+        t.tokens = []
+        t.length = 0
+        t.last_token = 0
+        t.prefilled = 0
+        t.reused_blocks = 0
+        with self._cv:
+            self._queue.appendleft(t)
+            self._queued_tokens += int(t.prompt.shape[0])
+            self._g_depth.set(len(self._queue))
+            self._cv.notify()
+
+    def adopt(
+        self,
+        t: GenerateTicket,
+        weights_step: int,
+        weights_digest: int,
+        cache_epoch: int,
+    ) -> None:
+        """Hand a migrated-in sequence (K/V already imported into its
+        granted blocks) to the worker for adoption at the next token
+        boundary.  ``weights_step`` / ``weights_digest`` name the
+        checkpoint the K/V was produced under and ``cache_epoch`` the
+        pool it was imported into; the worker checks them at adoption
+        and sends any skew to a cold re-prefill.  Runs on the migration
+        receiver's thread."""
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("batcher stopped")
+            self._adopted.append(
+                (t, int(weights_step), int(weights_digest), int(cache_epoch))
+            )
+            self._cv.notify()
+
+    def _adopt_pending(self, w) -> int:
+        """Place migrated-in sequences in the decode batch.  The weights
+        check happens here, at the token boundary: if a swap or a pool
+        rebuild landed between the import's grant and adoption, the
+        imported cache is unusable and the sequence re-prefills cold (a
+        restart event, never a token of mixed weights)."""
+        adopted = 0
+        while True:
+            with self._cv:
+                if not self._adopted:
+                    return adopted
+                t, step, digest, epoch = self._adopted.popleft()
+            stale = (
+                step != w.step or digest != w.digest
+                or epoch != self.engine.cache_epoch
+            )
+            if stale or len(self._active) >= self.engine.max_seqs:
+                self._free_blocks(t)
+                t.tokens = []
+                t.length = 0
+                t.last_token = 0
+                t.prefilled = 0
+                t.reused_blocks = 0
+                t.restarts += 1
+                t._event(
+                    {
+                        "restart": True,
+                        "weights_generation": w.generation,
+                        "weights_step": w.step,
+                    }
+                )
+                self.stats["restarts"] += 1
+                self._m_restarts.inc()
+                with self._cv:
+                    self._queue.appendleft(t)
+                    self._queued_tokens += int(t.prompt.shape[0])
+                    self._g_depth.set(len(self._queue))
+                continue
+            t.last_time = time.monotonic()
+            self._active.append(t)
+            adopted += 1
+            if self._seq_finished(t):
+                self._finish(t)
 
     # -- admission ----------------------------------------------------------
     def submit_generate(
@@ -687,6 +887,15 @@ class TokenContinuousBatcher:
         if restarted:
             self.stats["restarts"] += len(restarted)
             self._m_restarts.inc(len(restarted))
+            self.recorder.record(
+                "serve.restart",
+                {
+                    "sequences": len(restarted),
+                    "to_generation": new_gen,
+                    "to_step": new_step,
+                },
+                step=max(0, new_step),
+            )
 
     def _pop_admissible(self) -> Optional[GenerateTicket]:
         """The queue's head, expiring dead requests on the way (caller
@@ -727,6 +936,17 @@ class TokenContinuousBatcher:
             t.table[: len(blocks)] = blocks
             try:
                 first = self.engine.prefill(weights, t.prompt, t.table)
+            except DispatchWedgedError:
+                # Recoverable: the engine already rebuilt the pool and
+                # bumped cache_epoch.  The request survives at the
+                # queue's head; the worker's epoch check rewinds the
+                # rest next iteration.
+                self._free_blocks(t)
+                with self._cv:
+                    self._queue.appendleft(t)
+                    self._queued_tokens += plen
+                    self._g_depth.set(len(self._queue))
+                return joined
             except Exception as e:
                 traceback.print_exc()
                 self._free_blocks(t)
@@ -851,6 +1071,11 @@ class TokenContinuousBatcher:
                     weights, t.prompt[t.prefilled:t.prefilled + clen],
                     t.prefilled, t.table,
                 )
+            except DispatchWedgedError:
+                # Recoverable: the sequence stays at the FIFO head; the
+                # epoch rewind next iteration frees its blocks, resets
+                # its progress and requeues it.
+                break
             except Exception as e:
                 traceback.print_exc()
                 self._prefilling.popleft()
@@ -920,6 +1145,11 @@ class TokenContinuousBatcher:
             tables[i] = t.table
         try:
             ids = self.engine.decode_step(weights, tokens, lengths, tables)
+        except DispatchWedgedError:
+            # Recoverable: the sequences stay active; the epoch check
+            # next iteration re-prefills every one of them on the
+            # rebuilt pool.  A genuine compute error (below) rejects.
+            return 0
         except Exception as e:
             traceback.print_exc()
             for t in ready:
@@ -941,7 +1171,13 @@ class TokenContinuousBatcher:
             t.tokens.append(tok)
             self._m_intertoken.observe(now - t.last_time)
             t.last_time = now
-            t._event({"token": tok, "i": len(t.tokens) - 1})
+            ev = {"token": tok, "i": len(t.tokens) - 1}
+            if ev["i"] == 0:
+                # a sequence's first token names the weights that made
+                # it (the purity stamp a stream relay resumes on)
+                ev["weights_step"] = weights.step
+                ev["weights_generation"] = weights.generation
+            t._event(ev)
             if self._seq_finished(t):
                 self._finish(t)
         return len(ready)
@@ -960,16 +1196,32 @@ class TokenContinuousBatcher:
     def _work(self) -> None:
         while True:
             with self._cv:
-                idle = not (self._queue or self._active or self._prefilling)
-                if idle and not self._stop:
+                idle = not (
+                    self._queue or self._active or self._prefilling or self._adopted
+                )
+                if idle and not self._stop and not self._freeze_req.is_set():
                     self._cv.wait(timeout=0.5)
                 if self._stop:
                     queued = list(self._queue)
                     self._queue.clear()
                     self._queued_tokens = 0
                     self._g_depth.set(0)
+                    adopted = [e[0] for e in self._adopted]
+                    self._adopted.clear()
                     break
-                idle = not (self._queue or self._active or self._prefilling)
+                idle = not (
+                    self._queue or self._active or self._prefilling or self._adopted
+                )
+            if self._freeze_req.is_set():
+                # The token-boundary freeze (a migration): the exporter
+                # owns the pool and the batch state until it resumes us.
+                self._frozen_ack.set()
+                # parked until the exporter resumes us, however long
+                # its body takes (or the batcher stops)
+                while not self._resume.wait(timeout=0.5) and not self._stop:
+                    pass
+                self._frozen_ack.clear()
+                continue
             # 1. the weights check, at the token boundary only (and on
             # each idle wake-up, so an idle replica swaps as well)
             self._refresh()
@@ -999,6 +1251,9 @@ class TokenContinuousBatcher:
                 self._bound_gen = w.generation
                 self._bound_step = w.step
                 self._bound_epoch = epoch
+            # 1b. adopt migrated-in sequences (checked against the
+            # weights just bound: a skew re-prefills cold)
+            adopted_work = self._adopt_pending(w) if self._adopted else 0
             # 2. join + budgeted prefill work; 3. one decode iteration.
             # The time admission work holds up a running batch is the
             # stall the chunked scheduler bounds.
@@ -1017,6 +1272,7 @@ class TokenContinuousBatcher:
                 # cache is gone, so decoding it now would emit garbage.
                 # Rewind first (next iteration's check).
                 continue
+            progress += adopted_work
             progress += self._decode_iteration(w)
             pool = self.engine.pool
             self._g_active.set(len(self._active))
@@ -1028,8 +1284,8 @@ class TokenContinuousBatcher:
                 # and nobody could join: nothing changes until a
                 # deadline expires or blocks free, so don't busy-spin.
                 time.sleep(0.01)
-        # stopped: nothing queued, prefilling or active survives.
-        for t in queued + list(self._prefilling) + list(self._active):
+        # stopped: nothing queued, adopted, prefilling or active survives.
+        for t in queued + adopted + list(self._prefilling) + list(self._active):
             self._free_blocks(t)
             self._m_requests.inc(status="error")
             t._reject(RuntimeError("batcher stopped"))

@@ -23,9 +23,16 @@ weight-swapping (counterpart of ``edl_tpu/serving/engine.py``).
   JAX engine's (there it bounds the held executables; here it bounds
   the gather and keeps padding and final-chunk behaviour the same).
 - **Device**: one engine, one device, named explicitly (default CUDA).
+- **Live migration**: ``export_kv`` gathers a sequence's filled K/V
+  blocks to host memory and ``import_kv`` scatters them into freshly
+  granted blocks of another engine (``serving/migrate.py`` moves them).
+- **Dispatch watchdog**: with ``dispatch_timeout`` (or
+  ``EDL_SERVE_DISPATCH_TIMEOUT``) > 0 each prefill, chunk and decode
+  call runs under a deadline; a wedged call rebuilds the pool, bumps
+  ``cache_epoch`` and raises ``DispatchWedgedError``, which the token
+  batcher treats as recoverable (live sequences re-prefill).
 
-Not ported yet: tp meshes, shard-only spills (the checkpoint fabric),
-KV export/import for migration, and the dispatch watchdog.
+Not ported yet: tp meshes and shard-only spills (the checkpoint fabric).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from edl_tpu_torch import DeviceLike, generator, resolve_device
+from edl_tpu_torch.consensus.watchdog import CollectiveTimeout, CollectiveWatchdog
 from edl_tpu_torch.models.base import ModelDef, StateDict
 
 #: the hand-written kernels the serving path launches (B1, on every
@@ -59,6 +67,14 @@ class PromptTooLongError(ValueError):
     """The prompt exceeds the engine's context window.  Raised at
     admission (``coerce_prompt``), before it costs any compute or KV
     blocks.  A ValueError, so the HTTP front maps it to 400."""
+
+
+class DispatchWedgedError(RuntimeError):
+    """A prefill, chunk or decode call missed the dispatch watchdog's
+    deadline.  By the time this raises the engine has rebuilt its KV
+    pool and bumped ``cache_epoch``: the token batcher treats it as
+    recoverable (live sequences re-prefill on the fresh cache instead of
+    being rejected), where a genuine compute error still rejects."""
 
 
 class BlockOwnershipError(RuntimeError):
@@ -721,7 +737,12 @@ class DecodeEngine(InferenceEngine):
         *,
         store=None,
         max_chunk_tokens: Optional[int] = None,
+        dispatch_timeout: Optional[float] = None,
     ):
+        """``dispatch_timeout``: seconds one prefill, chunk or decode call
+        may take before the watchdog declares it wedged (None: the
+        ``EDL_SERVE_DISPATCH_TIMEOUT`` env key; <= 0: no deadline, the
+        default, where the helper-thread hop would tax every token)."""
         if model.decode is None:
             raise ValueError(
                 f"model {model.name!r} declares no DecodeSpec; it can "
@@ -771,6 +792,26 @@ class DecodeEngine(InferenceEngine):
         #: failed mid-write and the pool was rebuilt): the token batcher
         #: then re-prefills every live sequence, as after a weight swap
         self.cache_epoch = 0
+        # The dispatch watchdog: a wedged call (hung device runtime,
+        # stuck copy) would otherwise hang the token batcher's worker
+        # forever.  The call runs on an abandonable helper thread under
+        # a deadline, and expiry goes into the pool rebuild and
+        # cache-epoch rewind a failed call already takes.
+        if dispatch_timeout is None:
+            dispatch_timeout = float(os.environ.get("EDL_SERVE_DISPATCH_TIMEOUT", "0") or 0)
+        self.dispatch_timeout = float(dispatch_timeout)
+        from edl_tpu_torch import telemetry
+
+        self.recorder = telemetry.get_recorder()
+        self._m_wedged = self.telemetry.counter("edl_serve_dispatch_wedged_total")
+
+        def _wedge_trip(what: str, waited: float) -> None:
+            self._m_wedged.inc()
+            self.recorder.record("serve.watchdog", {"what": what, "waited_s": round(waited, 3)})
+
+        self.watchdog = CollectiveWatchdog(
+            timeout=self.dispatch_timeout, registry=self.telemetry, on_trip=_wedge_trip
+        )
 
     @property
     def max_prompt(self) -> int:
@@ -859,7 +900,7 @@ class DecodeEngine(InferenceEngine):
         self.decode_step(w, one, np.zeros(1, np.int32), trash[None])
         return ran + 2
 
-    def _run(self, fn, params, tokens, lengths, tables, offsets=None) -> np.ndarray:
+    def _run(self, fn, params, tokens, lengths, tables, offsets=None, what="decode") -> np.ndarray:
         args = [self._to_device(tokens)]
         if offsets is not None:
             args.append(self._to_device(offsets))
@@ -869,10 +910,24 @@ class DecodeEngine(InferenceEngine):
             self.pool.vpool,
             self._to_device(tables),
         ]
-        try:
+
+        def dispatch():
+            # The call and its host read under one deadline: a wedged
+            # runtime can hang either.  (no_grad is per thread, so it
+            # is entered here, on whichever thread runs the call.)
             with torch.no_grad():
                 ids, _, _ = fn(params, *args)
                 return ids.cpu().numpy()
+
+        try:
+            return self.watchdog.fetch(dispatch, what=what)
+        except CollectiveTimeout as e:
+            # The abandoned call may still be writing the old planes:
+            # the pool gets fresh ones and a new epoch, and the batcher
+            # re-prefills its live sequences instead of rejecting them.
+            self.pool.rebuild()
+            self.cache_epoch += 1
+            raise DispatchWedgedError(str(e)) from e
         except BaseException:
             # The pools are written in place, layer by layer: a call
             # that raised may have left any of its writes half done.
@@ -899,6 +954,7 @@ class DecodeEngine(InferenceEngine):
             tok,
             np.asarray([plen], np.int32),
             np.asarray(table_row, np.int32)[None],
+            what="prefill",
         )
         return int(ids[0])
 
@@ -946,6 +1002,7 @@ class DecodeEngine(InferenceEngine):
             np.asarray([offset + clen], np.int32),
             np.asarray(table_row, np.int32)[None, :wblk],
             offsets=np.asarray([offset], np.int32),
+            what="chunk",
         )
         return int(ids[0])
 
@@ -967,3 +1024,47 @@ class DecodeEngine(InferenceEngine):
             np.asarray(lengths, np.int32),
             np.asarray(tables, np.int32),
         )
+
+    # -- live KV migration (device <-> host block movement) -------------------
+    def export_kv(self, block_ids: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather a sequence's filled K/V blocks to host memory for
+        migration: two CPU tensors ``[layers, n, block_tokens, heads,
+        head_dim]`` in the pool's dtype, each a view of block-major
+        memory (block ``j``'s ``[layers, block_tokens, heads, head_dim]``
+        contiguous: the wire's leaf).  Must run at a token boundary with
+        the batcher frozen.  The pool is written in place on this
+        device's stream, so the gather queues behind the last decode
+        step's writes; the copy lands in pinned memory and waits on its
+        own event, so no byte is read before it arrived."""
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long).to(self.device)
+        planes = []
+        for pool in (self.pool.kpool, self.pool.vpool):
+            rows = pool.index_select(1, ids).transpose(0, 1).contiguous()
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            planes.append(rows.transpose(0, 1))
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        return planes[0], planes[1]
+
+    def import_kv(self, block_ids: Sequence[int], k: torch.Tensor, v: torch.Tensor) -> None:
+        """Scatter migrated host K/V planes (``[layers, n, block_tokens,
+        heads, head_dim]``, the pool's dtype) into freshly granted pool
+        blocks: the survivor's half of a live migration.  Runs on this
+        device's stream, so every later decode step reads the imported
+        blocks after they landed."""
+        shape = (self.pool._shape[0], len(block_ids)) + self.pool._shape[2:]
+        for name, plane in (("k", k), ("v", v)):
+            if tuple(plane.shape) != shape or plane.dtype != self.pool._dtype:
+                raise ValueError(
+                    f"imported {name} plane {tuple(plane.shape)} {plane.dtype} does "
+                    f"not fit the pool's {shape} {self.pool._dtype}"
+                )
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long).to(self.device)
+        nb = self.device.type == "cuda" and k.is_pinned() and v.is_pinned()
+        self.pool.kpool.index_copy_(1, ids, k.to(self.device, non_blocking=nb))
+        self.pool.vpool.index_copy_(1, ids, v.to(self.device, non_blocking=nb))

@@ -17,29 +17,37 @@ One stdlib ``ThreadingHTTPServer`` per replica:
   prior tokens, and a final ``{"done": true, "tokens": [...]}`` line
   that is the authoritative output.  A prompt over the context cap is
   a 400; the same 429/503/504 mapping as /predict.
-- ``POST /drain``    — ``{"budget_ms": 30000, "wait": true}``: close
-  admission, let every admitted request finish, free its KV blocks,
-  deregister from the serving coordinator; the reply is the drain's
-  ack (``drained``, ``in_flight``).
-- ``GET /healthz``   — readiness: weights step, queue depths, drain
-  posture, decode pool occupancy and the chunked-prefill / prefix-cache
-  posture.
+- ``POST /drain``    — ``{"budget_ms": 30000, "wait": true,
+  "migrate_to": "HOST:PORT"}``: close admission; with ``migrate_to``
+  hand every in-flight decode sequence to that survivor first (its KV
+  blocks move and decode resumes there mid-generation; queued and
+  half-prefilled prompts requeue there cold); let what stayed finish,
+  free its KV blocks, deregister from the serving coordinator.  The
+  reply is the drain's ack (``drained``, ``in_flight``, ``progress``
+  and the ``migrate`` summary).
+- ``GET /migrate``   — the migration receiver's TCP port, and whether
+  it is accepting (a draining source asks before its push).
+- ``GET /healthz``   — readiness: weights step, queue depths and
+  saturation, drain posture, decode pool occupancy and the
+  chunked-prefill / prefix-cache posture.
 - ``GET /metrics``   — Prometheus exposition of the process registry.
 
 ``ServingReplica`` drives one replica's control plane: load the newest
-checkpoint, warm, start serving, register with the serving coordinator,
-heartbeat (re-registering after an eviction), and drain.  The pod
-entry point, ``python -m edl_tpu_torch.serving.server --checkpoint-dir
-D [--coordinator HOST:PORT]``, goes through ``serve_run`` and drains
-then exits on SIGTERM.  ``build_replica`` starts a replica on seeded
-weights instead (no checkpoint, no coordinator).  Live migration, the
-router and the telemetry reports come with later slices.
+checkpoint, warm, start serving and the migration receiver, register
+with the serving coordinator, heartbeat (re-registering after an
+eviction) and ship its registry snapshot and flight-recorder events on
+the telemetry cadence, and drain.  The pod entry point, ``python -m
+edl_tpu_torch.serving.server --checkpoint-dir D [--coordinator
+HOST:PORT]``, goes through ``serve_run`` and drains then exits on
+SIGTERM.  ``build_replica`` starts a replica on seeded weights instead
+(no checkpoint, no coordinator).
 """
 
 from __future__ import annotations
 
 import json
 import queue
+import socket
 import threading
 import time
 import uuid
@@ -77,6 +85,12 @@ class ServingServer:
         #: POST /drain runs the replica's whole contract through it;
         #: without one the handler drains the batchers directly
         self.replica = None
+        #: the MigrationReceiver advertised on GET /migrate (set by
+        #: ServingReplica.start for decode-capable replicas)
+        self.migration = None
+        #: open client connections, so a kill can sever them
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
         engine = batcher.engine
         self_server = self
         from edl_tpu_torch import telemetry
@@ -91,6 +105,19 @@ class ServingServer:
 
             def log_message(self, fmt, *args):  # quiet
                 pass
+
+            def setup(self):
+                super().setup()
+                with self_server._conns_lock:
+                    self_server._conns.add(self.connection)
+
+            def finish(self):
+                with self_server._conns_lock:
+                    self_server._conns.discard(self.connection)
+                try:
+                    super().finish()
+                except OSError:
+                    pass  # a severed connection has nothing to flush
 
             def _reply(self, obj, code=200, headers=()):
                 body = json.dumps(obj).encode()
@@ -135,6 +162,9 @@ class ServingServer:
                         "warm": engine.warmed,
                         "queue_depth": batcher.depth,
                         "queue_limit": batcher.queue_limit,
+                        # how close admission is to the 429 wall: the
+                        # router's least-loaded score reads it
+                        "saturation": round(batcher.depth / max(1, batcher.queue_limit), 4),
                         # drain posture: admission state and what is
                         # still in flight (a scale-down polls these)
                         "draining": batcher.draining
@@ -151,6 +181,7 @@ class ServingServer:
                             "active_sequences": gen.active_count,
                             "decode_queue_depth": gen.depth,
                             "queue_limit": gen.queue_limit,
+                            "saturation": round(gen.depth / max(1, gen.queue_limit), 4),
                             "kv_occupancy": round(pool.occupancy(), 4),
                             "kv_pool_bytes": pool.nbytes(),
                             "kv_used_blocks": pool.used_blocks,
@@ -167,6 +198,23 @@ class ServingServer:
                             ),
                         }
                     self._reply(health, 200 if engine.ready else 503)
+                elif self.path == "/migrate":
+                    # The migration endpoint: the KV bytes move over
+                    # their own TCP port, never through JSON.
+                    mig = self_server.migration
+                    gen = self_server.gen_batcher
+                    if mig is None:
+                        self._reply({"error": "no migration receiver"}, 404)
+                        return
+                    self._reply(
+                        {
+                            "migrate_port": mig.port,
+                            "accepting": bool(
+                                mig.accepting and engine.ready
+                                and not (gen is not None and gen.draining)
+                            ),
+                        }
+                    )
                 elif self.path == "/metrics":
                     body = registry.render().encode()
                     self.send_response(200)
@@ -312,13 +360,18 @@ class ServingServer:
                 budget_ms = req.get("budget_ms")
                 budget_s = float(budget_ms) / 1000.0 if budget_ms is not None else None
                 wait = bool(req.get("wait", True))
+                kw = {
+                    "budget_s": budget_s,
+                    "migrate_to": req.get("migrate_to") or None,
+                    "trace": req.get("trace") or None,
+                }
                 rep = self_server.replica
                 if rep is not None:
                     if wait:
-                        self._reply(rep.drain(budget_s=budget_s))
+                        self._reply(rep.drain(**kw))
                     else:
                         threading.Thread(
-                            target=rep.drain, kwargs={"budget_s": budget_s},
+                            target=rep.drain, kwargs=kw,
                             daemon=True, name="edl-serve-drain",
                         ).start()
                         self._reply({"draining": True, "drained": False})
@@ -361,8 +414,10 @@ class ServingServer:
                         if "done" in ev or "error" in ev:
                             break
                     self.wfile.write(b"0\r\n\r\n")
-                except (BrokenPipeError, ConnectionError):
-                    pass  # client went away; the worker resolves anyway
+                except OSError:
+                    # the client went away (or a kill severed us); the
+                    # worker resolves the ticket anyway
+                    pass
 
         self._server = ThreadingHTTPServer((host, port), Handler)
         self._thread: Optional[threading.Thread] = None
@@ -372,14 +427,32 @@ class ServingServer:
         return self._server.server_address[1]
 
     def start(self) -> "ServingServer":
+        # a short poll: a stop (or a kill) takes effect within 0.1 s
         self._thread = threading.Thread(
-            target=self._server.serve_forever, daemon=True, name="edl-serve"
+            target=self._server.serve_forever, kwargs={"poll_interval": 0.1},
+            daemon=True, name="edl-serve",
         )
         self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def _sever(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def stop(self, sever: bool = False) -> None:
+        """Stop accepting.  ``sever``: also cut every open connection
+        mid-response, as a dead process would (a stream in flight ends
+        without its terminal line)."""
+        if sever:
+            self._sever()  # at once: the accept loop may take a poll to stop
         self._server.shutdown()
+        if sever:
+            self._sever()  # and whatever it accepted meanwhile
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
@@ -387,14 +460,17 @@ class ServingServer:
 
 class ServingReplica:
     """One serving replica's control plane: load -> warm -> serve ->
-    register -> heartbeat until drained or stopped.
+    register -> heartbeat and report until drained or stopped.
 
     ``coordinator`` is the serving world's coordinator (a
     ``LocalCoordinator`` or an ``HTTPCoordinator``: the same membership
-    machinery the training world runs).  Warm before register: by the
-    time the replica appears among the members, its first request builds
-    and loads nothing.  A heartbeat that finds the replica evicted
-    (``KeyError``) registers it again."""
+    and telemetry machinery the training world runs).  Warm before
+    register: by the time the replica appears among the members, its
+    first request builds and loads nothing.  A heartbeat that finds the
+    replica evicted (``KeyError``) registers it again.  Every
+    ``telemetry_interval`` seconds the heartbeat thread also ships the
+    registry snapshot and the new flight-recorder events (the
+    ``serve.drain`` events a router steers on among them)."""
 
     def __init__(
         self,
@@ -405,12 +481,13 @@ class ServingReplica:
         replica_id: str = "",
         address: str = "",
         heartbeat_interval: float = 2.0,
+        telemetry_interval: float = 5.0,
         gen_batcher=None,
         drain_budget_s: float = 30.0,
     ):
         """``drain_budget_s``: how long a drain lets in-flight work
         finish before it gives up (``EDL_SERVE_DRAIN_MS`` through
-        ``serve_run``)."""
+        ``serve_run``).  ``telemetry_interval`` <= 0 ships no reports."""
         self.engine = engine
         self.batcher = batcher or ContinuousBatcher(engine)
         if gen_batcher is None and getattr(engine, "spec", None) is not None:
@@ -423,11 +500,18 @@ class ServingReplica:
         self.replica_id = replica_id or f"serve-{uuid.uuid4().hex[:8]}"
         self.address = address
         self.heartbeat_interval = float(heartbeat_interval)
+        self.telemetry_interval = float(telemetry_interval)
         self.drain_budget_s = float(drain_budget_s)
         self.loaded = False
         self._stop_evt: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
         self._deregistered = False
+        self._dead = False
+        #: telemetry report sequence, the last event shipped, and this
+        #: incarnation's nonce (a restart's reports supersede the old)
+        self._seq = 0
+        self._events_sent_seq = 0
+        self._boot = uuid.uuid4().hex[:12]
         #: the drain's state machine: None (serving) -> "running" ->
         #: "drained" (terminal) or "incomplete" (budget missed:
         #: admission stays closed, the replica stays registered and
@@ -436,16 +520,25 @@ class ServingReplica:
         self._drain_state: Optional[str] = None
         self._drain_evt: Optional[threading.Event] = None
         self._drain_result: Optional[dict] = None
+        #: causal-trace id the drain journals under (the actuator's
+        #: decision trace, when the POST /drain body carried one)
+        self._drain_trace: Optional[str] = None
         #: generation tickets on the books when the drain began; a
-        #: retried drain waits only for those still unresolved
+        #: retried drain waits only for those still unresolved and local
         self._drain_pending: Optional[list] = None
         self._drain_total = 0
+        self._drain_migrated = 0
+        #: the live-migration receiver (decode-capable replicas; started
+        #: by start, advertised on GET /migrate)
+        self.migration = None
         from edl_tpu_torch import telemetry
 
-        reg = telemetry.get_registry()
-        self._g_draining = reg.gauge("edl_serve_draining")
-        self._m_drains = reg.counter("edl_serve_drains_total")
-        self._h_drain = reg.histogram("edl_serve_drain_seconds")
+        self.telemetry = telemetry.get_registry()
+        self.recorder = telemetry.get_recorder()
+        self._m_reports = self.telemetry.counter("edl_telemetry_reports_total")
+        self._g_draining = self.telemetry.gauge("edl_serve_draining")
+        self._m_drains = self.telemetry.counter("edl_serve_drains_total")
+        self._h_drain = self.telemetry.histogram("edl_serve_drain_seconds")
 
     def start(self) -> "ServingReplica":
         self.loaded = self.engine.load()
@@ -456,13 +549,30 @@ class ServingReplica:
             self.gen_batcher.start()
             if self.server is not None and self.server.gen_batcher is None:
                 self.server.gen_batcher = self.gen_batcher
+            # Survivors import drained replicas' sequences here (their
+            # own TCP port, not HTTP).
+            from edl_tpu_torch.serving.migrate import MigrationReceiver
+
+            self.migration = MigrationReceiver(
+                self.engine, self.gen_batcher, replica_id=self.replica_id
+            ).start()
         if self.server is not None:
             self.server.replica = self  # POST /drain comes here
+            self.server.migration = self.migration
             self.server.start()
         if self.coordinator is not None:
             self.coordinator.register(self.replica_id, address=self.address)
             self._start_background()
         self._g_draining.set(0, replica=self.replica_id)
+        self.recorder.record(
+            "serve.replica",
+            {
+                "replica": self.replica_id,
+                "model": self.engine.model.name,
+                "loaded": bool(self.loaded),
+            },
+            step=max(0, self.engine.weights_step),
+        )
         return self
 
     def stop(self) -> None:
@@ -478,6 +588,25 @@ class ServingReplica:
         self.batcher.stop()
         if self.gen_batcher is not None:
             self.gen_batcher.stop()
+        if self.migration is not None:
+            self.migration.stop()
+
+    def die(self) -> None:
+        """The ungraceful exit, the death a drain exists to avoid: the
+        HTTP front stops and severs its open connections (a stream in
+        flight ends without a terminal line), the batchers stop (queued
+        and running requests fail; their clients retry elsewhere), and
+        heartbeats stop without a deregister, so the coordinator learns
+        only at lease expiry."""
+        self._dead = True
+        self._stop_heartbeats()
+        if self.server is not None:
+            self.server.stop(sever=True)
+        self.batcher.stop()
+        if self.gen_batcher is not None:
+            self.gen_batcher.stop()
+        if self.migration is not None:
+            self.migration.stop()
 
     # -- graceful drain -----------------------------------------------------
     def _in_flight(self) -> int:
@@ -486,23 +615,35 @@ class ServingReplica:
             n += self.gen_batcher.in_flight
         return n
 
-    def drain(self, budget_s: Optional[float] = None) -> dict:
+    def drain(
+        self,
+        budget_s: Optional[float] = None,
+        migrate_to: Optional[str] = None,
+        trace: Optional[str] = None,
+    ) -> dict:
         """The graceful-shutdown contract, in order: (1) close admission
         (later requests get 503 + Retry-After: this replica is leaving);
-        (2) let every admitted request and decode sequence finish under
-        ``budget_s`` (their finish paths free their KV blocks the same
-        iteration); (3) stop heartbeating, then deregister from the
-        serving coordinator (heartbeats first, or the eviction-rejoin
-        path would register the leaving replica again); (4) return the
-        ack.  The caller owns the exit (``stop``); a drained replica
-        still answers /healthz and /metrics until then.
+        (2) with ``migrate_to`` (a survivor's HTTP address, or a
+        ``tcp://host:port`` receiver) hand every in-flight decode
+        sequence to the survivor first: its KV blocks move and decode
+        resumes there mid-generation, while queued and half-prefilled
+        prompts requeue there cold, so the drain costs O(KV bytes), not
+        the longest generation; (3) let what stayed (and every
+        single-shot request) finish under ``budget_s``, their finish
+        paths freeing the KV blocks; (4) only once in-flight work has
+        settled, stop heartbeating and deregister (heartbeats first, or
+        the eviction-rejoin path would register the leaving replica
+        again); (5) return the ack.  The caller owns the exit
+        (``stop``); a drained replica still answers /healthz and
+        /metrics until then.
 
         One drain runs at a time; concurrent callers (POST /drain racing
         SIGTERM) wait for it and share its result.  A drain that misses
         its budget is ``incomplete``, not final: admission stays closed,
-        but the replica stays registered and heartbeating, so it stays
-        visible as an undrained member, and a later drain waits out the
-        rest.  Only a finished drain deregisters."""
+        but the replica stays registered and heartbeating, and a later
+        drain waits out only the sequences still unresolved and local
+        (``progress`` carries the count across attempts).  Only a
+        finished drain deregisters."""
         budget = self.drain_budget_s if budget_s is None else float(budget_s)
         give_up = time.monotonic() + budget + 10.0
         while True:
@@ -520,8 +661,15 @@ class ServingReplica:
                 return dict(self._drain_result or {"draining": True, "drained": False})
         t0 = time.monotonic()
         self._g_draining.set(1, replica=self.replica_id)
+        if trace:
+            self._drain_trace = trace
         if first:
             self._m_drains.inc()  # drains, not attempts
+            self.recorder.record(
+                "serve.drain",
+                {"replica": self.replica_id, "phase": "start"},
+                trace=self._drain_trace,
+            )
         self.batcher.close_admission()
         if self.gen_batcher is not None:
             self.gen_batcher.close_admission()
@@ -530,12 +678,41 @@ class ServingReplica:
                 self.gen_batcher.pending() if self.gen_batcher is not None else []
             )
             self._drain_total = len(self._drain_pending)
+        else:
+            self._drain_pending = [
+                t for t in self._drain_pending if not t._done.is_set() and not t.migrated
+            ]
+        migrate_summary = None
+        if migrate_to and self.gen_batcher is not None:
+            from edl_tpu_torch.serving.migrate import MigrationError, migrate_out
+
+            try:
+                migrate_summary = migrate_out(
+                    self.engine, self.gen_batcher, migrate_to,
+                    replica_id=self.replica_id,
+                )
+                self._drain_migrated += (
+                    migrate_summary["migrated"] + migrate_summary["fallback"]
+                    + migrate_summary["cold"]
+                )
+            except MigrationError as e:
+                # The survivor is dark or refusing before anything
+                # moved: everything is still local, so the bounded wait
+                # below covers it.
+                migrate_summary = {"error": type(e).__name__}
+                self.recorder.record(
+                    "serve.migrate",
+                    {"phase": "abort", "replica": self.replica_id,
+                     "reason": type(e).__name__},
+                )
         deadline = t0 + budget
         while time.monotonic() < deadline and self._in_flight():
             time.sleep(0.005)
         leftover = self._in_flight()
         drained = leftover == 0
-        self._drain_pending = [t for t in self._drain_pending if not t._done.is_set()]
+        self._drain_pending = [
+            t for t in self._drain_pending if not t._done.is_set() and not t.migrated
+        ]
         if drained:
             self._stop_heartbeats()
             if self.coordinator is not None and not self._deregistered:
@@ -547,6 +724,18 @@ class ServingReplica:
         dt = time.monotonic() - t0
         self._h_drain.observe(dt)
         self._g_draining.set(2 if drained else 1, replica=self.replica_id)
+        if drained:
+            self.recorder.record(
+                "serve.drain",
+                {
+                    "replica": self.replica_id,
+                    "phase": "done",
+                    "drained": True,
+                    "migrated": self._drain_migrated,
+                },
+                timing={"seconds": round(dt, 6), "in_flight": leftover},
+                trace=self._drain_trace,
+            )
         result = {
             "draining": True,
             "drained": drained,
@@ -554,22 +743,30 @@ class ServingReplica:
             "seconds": round(dt, 6),
             "progress": {
                 "total": self._drain_total,
+                "migrated": self._drain_migrated,
                 "remaining": len(self._drain_pending),
             },
         }
+        if migrate_summary is not None:
+            result["migrate"] = migrate_summary
         with self._drain_lock:
             self._drain_result = result
             self._drain_state = "drained" if drained else "incomplete"
             evt.set()
         return dict(result)
 
-    # -- heartbeats ---------------------------------------------------------
+    # -- heartbeats and telemetry reports -------------------------------------
     def _start_background(self) -> None:
         self._stop_evt = threading.Event()
 
         def loop():
+            last_report = 0.0
             while not self._stop_evt.wait(max(self.heartbeat_interval, 0.05)):
                 self._beat_once()
+                now = time.monotonic()
+                if self.telemetry_interval > 0 and now - last_report >= self.telemetry_interval:
+                    last_report = now
+                    self._report_telemetry()
 
         self._thread = threading.Thread(
             target=loop, daemon=True, name="edl-serve-heartbeat"
@@ -579,7 +776,10 @@ class ServingReplica:
     def _stop_heartbeats(self) -> None:
         if self._stop_evt is not None:
             self._stop_evt.set()
-        if self._thread is not None and self._thread.is_alive():
+        if (
+            self._thread is not None and self._thread.is_alive()
+            and self._thread is not threading.current_thread()
+        ):
             self._thread.join(timeout=10)
 
     def _beat_once(self) -> None:
@@ -595,9 +795,34 @@ class ServingReplica:
         except Exception:
             pass  # coordinator unreachable: retry at the next beat
 
+    def _report_telemetry(self) -> None:
+        """Ship the cumulative registry snapshot and the flight-recorder
+        events not shipped yet (at most 64 a report).  Best effort, like
+        the trainer's cadence: a dark coordinator costs one report."""
+        rep = getattr(self.coordinator, "report_telemetry", None)
+        if rep is None:
+            return
+        events = self.recorder.events_since(self._events_sent_seq)[:64]
+        self._seq += 1
+        try:
+            rep(
+                self.replica_id,
+                snapshot=self.telemetry.snapshot(),
+                seq=self._seq,
+                events=[e.to_dict() for e in events],
+                boot=self._boot,
+            )
+        except Exception:
+            return
+        if events:
+            self._events_sent_seq = events[-1].seq
+        self._m_reports.inc()
+
     def tick(self) -> None:
-        """One synchronous heartbeat (tests, single-threaded drivers)."""
+        """One synchronous heartbeat and report (tests, single-threaded
+        drivers)."""
         self._beat_once()
+        self._report_telemetry()
 
 
 def build_replica(
@@ -692,6 +917,7 @@ def serve_run(
         engine, batcher, server, coordinator=coordinator,
         replica_id=replica_id or cfg["pod_name"],
         address=pod_address or cfg["pod_address"],
+        telemetry_interval=cfg["telemetry_interval"],
         gen_batcher=gen,
         drain_budget_s=cfg["serve_drain_ms"] / 1000.0,
     )

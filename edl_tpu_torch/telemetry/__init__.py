@@ -1,8 +1,16 @@
-"""``edl_tpu_torch.telemetry`` — the port's metrics registry.
+"""``edl_tpu_torch.telemetry`` — the port's metrics registry, flight
+recorder and cluster aggregation (counterpart of ``edl_tpu.telemetry``).
 
-A process-global default registry lives here; ``scoped()`` swaps it for
-a ``with`` block so tests get hermetic metrics.  The flight recorder
-and cluster aggregation come with later slices.
+- ``registry``: process-local counters / gauges / bounded histograms
+  with catalog-enforced names, Prometheus text exposition and
+  mergeable snapshots.
+- ``recorder``: the flight recorder — a (step, generation)-stamped
+  event journal with an order-independent digest.
+- ``aggregate``: the coordinator-side merge of cumulative per-source
+  snapshots, and the quantile and goodput reads of that merge.
+
+Process-global default instances live here; ``scoped()`` swaps them
+for a ``with`` block so tests get hermetic telemetry.
 """
 
 from __future__ import annotations
@@ -10,24 +18,49 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
+from edl_tpu_torch.telemetry.aggregate import (
+    TelemetryAggregator,
+    coord_snapshot_gauges,
+    histogram_quantile,
+)
 from edl_tpu_torch.telemetry.catalog import CATALOG
-from edl_tpu_torch.telemetry.registry import MetricsRegistry, render_prometheus
+from edl_tpu_torch.telemetry.recorder import FlightEvent, FlightRecorder
+from edl_tpu_torch.telemetry.registry import (
+    MetricsRegistry,
+    merge_snapshots,
+    render_prometheus,
+)
+from edl_tpu_torch.telemetry.spans import span
 
 __all__ = [
     "CATALOG",
+    "FlightEvent",
+    "FlightRecorder",
     "MetricsRegistry",
+    "TelemetryAggregator",
+    "coord_snapshot_gauges",
+    "get_recorder",
     "get_registry",
+    "histogram_quantile",
+    "merge_snapshots",
     "render_prometheus",
     "scoped",
+    "set_recorder",
     "set_registry",
+    "span",
 ]
 
 _lock = threading.Lock()
 _registry = MetricsRegistry()
+_recorder = FlightRecorder()
 
 
 def get_registry() -> MetricsRegistry:
     return _registry
+
+
+def get_recorder() -> FlightRecorder:
+    return _recorder
 
 
 def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
@@ -37,12 +70,23 @@ def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
     return old
 
 
+def set_recorder(recorder: FlightRecorder) -> FlightRecorder:
+    global _recorder
+    with _lock:
+        old, _recorder = _recorder, recorder
+    return old
+
+
 @contextmanager
-def scoped(registry=None):
-    """Swap the process-global registry for the block.  Yields it."""
+def scoped(registry=None, recorder=None):
+    """Swap the process-global registry and recorder for the block.
+    Yields (registry, recorder)."""
     reg = registry if registry is not None else MetricsRegistry()
-    old = set_registry(reg)
+    rec = recorder if recorder is not None else FlightRecorder()
+    old_reg = set_registry(reg)
+    old_rec = set_recorder(rec)
     try:
-        yield reg
+        yield reg, rec
     finally:
-        set_registry(old)
+        set_registry(old_reg)
+        set_recorder(old_rec)

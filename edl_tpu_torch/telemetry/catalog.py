@@ -391,4 +391,168 @@ CATALOG = {
         "actually stepping (stepping / total ledger seconds).",
         "labels": (),
     },
+    # -- live KV migration and the dispatch watchdog --------------------------
+    "edl_serve_migrations_total": {
+        "type": "counter",
+        "help": "Sequences handed to a survivor at drain/preemption, by "
+        "outcome: ok (KV blocks moved, decode resumed "
+        "mid-generation), fallback (push failed somewhere on the "
+        "ladder, re-prefilled cold on the survivor), cold "
+        "(half-prefilled or queued sequence requeued as a cold "
+        "prompt), failed (survivor unusable, sequence readmitted "
+        "locally and drained by waiting).",
+        "labels": ("outcome",),
+    },
+    "edl_serve_migrations_bytes_total": {
+        "type": "counter",
+        "help": "KV-cache bytes pushed to survivors over the chunked "
+        "migration stream (filled blocks only, K and V planes).",
+        "labels": (),
+    },
+    "edl_serve_migrate_seconds": {
+        "type": "histogram",
+        "help": "Seconds from sequence freeze to the survivor's import ack "
+        "(device->host gather + chunked TCP push + dest pool "
+        "scatter) — the per-sequence unit of O(KV bytes) drain "
+        "latency.",
+        "labels": (),
+    },
+    "edl_serve_dispatch_wedged_total": {
+        "type": "counter",
+        "help": "Serving dispatches (prefill / chunk / decode) that missed "
+        "the dispatch watchdog deadline and were recovered via pool "
+        "rebuild + cache-epoch re-prefill instead of hanging the "
+        "worker thread.",
+        "labels": (),
+    },
+    # -- the request router ---------------------------------------------------
+    "edl_route_requests_total": {
+        "type": "counter",
+        "help": "Requests the router resolved, by outcome: ok (served, "
+        "possibly after absorbed retries), exhausted (per-request "
+        "retry budget spent -> typed RetryBudgetExhausted), error "
+        "(non-retryable upstream reply passed through).",
+        "labels": ("outcome",),
+    },
+    "edl_route_retries_total": {
+        "type": "counter",
+        "help": "Per-attempt failures the router absorbed invisibly (the "
+        "client never saw them), by what the backend said: "
+        "queue_full (429 back-off-here), draining (503 "
+        "go-elsewhere), refused (connection refused/reset = dead "
+        "replica), error (other 5xx/transport failure).",
+        "labels": ("reason",),
+    },
+    "edl_route_steers_total": {
+        "type": "counter",
+        "help": "Admissions steered off a draining replica BEFORE it could "
+        "503 them (the router consumed the drain intent / healthz "
+        "draining bit first).",
+        "labels": (),
+    },
+    "edl_route_ejections_total": {
+        "type": "counter",
+        "help": "Replicas ejected from rotation on consecutive-failure "
+        "passive health (re-admission is by active probe only).",
+        "labels": (),
+    },
+    "edl_route_readmits_total": {
+        "type": "counter",
+        "help": "Ejected replicas re-admitted after an active /healthz "
+        "probe came back ok and not draining.",
+        "labels": (),
+    },
+    "edl_route_redrives_total": {
+        "type": "counter",
+        "help": "In-flight /generate streams cut by a replica failure and "
+        "re-driven against a survivor: resume (same weights step -> "
+        "greedy continuation from the emitted prefix, no token "
+        "duplicated or dropped) or restart (weights skew -> restart "
+        "event voids prior tokens, the batcher's hot-swap "
+        "contract).",
+        "labels": ("outcome",),
+    },
+    "edl_route_affinity_total": {
+        "type": "counter",
+        "help": "Prefix-affinity consults on /generate admissions: hit "
+        "(routed to the replica already holding the prompt's cached "
+        "prefix blocks) or miss (no affinity known, or the affine "
+        "replica was unroutable/overloaded — advisory only, never "
+        "correctness-bearing).",
+        "labels": ("outcome",),
+    },
+    "edl_route_backends": {
+        "type": "gauge",
+        "help": "Routable-backend census by health state (healthy / "
+        "draining / ejected), from the router's last plan sync.",
+        "labels": ("state",),
+    },
+    # -- telemetry reports, spans, the flight recorder's spill ----------------
+    "edl_telemetry_reports_total": {
+        "type": "counter",
+        "help": "Telemetry snapshots shipped to the coordinator.",
+        "labels": (),
+    },
+    "edl_span_seconds": {
+        "type": "histogram",
+        "help": "Named span durations; span names match the utils.profiling "
+        "trace annotations so traces and metrics correlate by name.",
+        "labels": ("span",),
+    },
+    # -- the coordinator snapshot as gauges (its /metrics) --------------------
+    "edl_generation": {
+        "type": "gauge",
+        "help": "Coordinator plan generation.",
+        "labels": (),
+    },
+    "edl_world_size": {
+        "type": "gauge",
+        "help": "Active world size of the current plan.",
+        "labels": (),
+    },
+    "edl_members": {
+        "type": "gauge",
+        "help": "Registered live members (active + standby).",
+        "labels": (),
+    },
+    "edl_standby_members": {
+        "type": "gauge",
+        "help": "Registered members beyond the active world.",
+        "labels": (),
+    },
+    "edl_target_world": {
+        "type": "gauge",
+        "help": "Actuation target world size.",
+        "labels": (),
+    },
+    "edl_prewarm_world": {
+        "type": "gauge",
+        "help": "Advisory prewarm hint (0 = none).",
+        "labels": (),
+    },
+    "edl_target_steps": {
+        "type": "gauge",
+        "help": "Steps after which the job completes (0 = open-ended).",
+        "labels": (),
+    },
+    "edl_latest_checkpoint_step": {
+        "type": "gauge",
+        "help": "Latest durable checkpoint step the coordinator knows.",
+        "labels": (),
+    },
+    "edl_plan_rebuilds": {
+        "type": "gauge",
+        "help": "Plan rebuilds (generation bumps) since coordinator start.",
+        "labels": (),
+    },
+    "edl_completed": {
+        "type": "gauge",
+        "help": "1 once a trainer reported the job complete.",
+        "labels": (),
+    },
+    "edl_completed_step": {
+        "type": "gauge",
+        "help": "Step at which completion was reported (-1 = none).",
+        "labels": (),
+    },
 }

@@ -28,15 +28,17 @@ Time is attributed ONLY at transitions (plus a throttled ``touch`` so
 long steady states stay fresh on the telemetry cadence), so the hot
 loop pays one monotonic read and a comparison per iteration.  Totals
 publish to ``edl_goodput_seconds_total{state=}`` and the rolling
-fraction to ``edl_goodput_frac``.  (The JAX package's coordinator also
-aggregates members' counters into a job-level decomposition,
-``goodput_decomposition``; cluster aggregation is not ported yet.)
+fraction to ``edl_goodput_frac``.  ``goodput_decomposition`` turns
+the coordinator's merge of the members' counters into the job-level
+decomposition.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Dict, Optional
+
+from edl_tpu_torch.telemetry.registry import parse_label_key
 
 #: the stepping state — the numerator of the goodput fraction
 STEPPING = "stepping"
@@ -161,3 +163,37 @@ class GoodputLedger:
         f = self.frac()
         if f is not None:
             self._g_frac.set(f)
+
+
+def goodput_decomposition(snapshot: dict) -> Optional[dict]:
+    """Job-level goodput from a (merged) registry snapshot: per-state
+    seconds + the stepping fraction.  ``resizing`` phase refinements
+    sum INTO the plain ``resizing`` counter too (monotone counters
+    can't move time between series), so the total counts the serial
+    window once: phases are detail, plain-resizing = bucket - phases.
+    None when no ledger ever reported."""
+    series = (snapshot.get("counters") or {}).get(
+        "edl_goodput_seconds_total"
+    )
+    if not series:
+        return None
+    seconds: Dict[str, float] = {}
+    for key, v in series.items():
+        labels = dict(parse_label_key(key))
+        state = labels.get("state", "unknown")
+        seconds[state] = seconds.get(state, 0.0) + float(v)
+    phase_s = sum(
+        v for k, v in seconds.items() if k.startswith("resizing:")
+    )
+    total = sum(
+        v for k, v in seconds.items() if not k.startswith("resizing:")
+    )
+    if "resizing" in seconds:
+        seconds["resizing"] = max(0.0, seconds["resizing"] - phase_s)
+    if total <= 0.0:
+        return None
+    return {
+        "seconds": {k: round(v, 6) for k, v in sorted(seconds.items())},
+        "total_s": round(total, 6),
+        "frac": round(seconds.get(STEPPING, 0.0) / total, 6),
+    }

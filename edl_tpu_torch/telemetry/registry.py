@@ -12,8 +12,9 @@ reading the port's own catalog:
 - **Bounded histograms**: fixed bucket bounds declared in the catalog
   (default ``DEFAULT_BUCKETS``) — constant memory per series.
 - **Prometheus text exposition** via ``render_prometheus``.
-
-Snapshot merging across processes comes with the coordinator.
+- **Mergeable snapshots**: ``merge_snapshots`` sums counters and
+  histograms and maxes gauges: the coordinator's aggregator merges the
+  cumulative per-source snapshots with it.
 """
 
 from __future__ import annotations
@@ -225,6 +226,47 @@ class MetricsRegistry:
 
     def render(self) -> str:
         return render_prometheus(self.snapshot())
+
+
+def merge_snapshots(snaps: Sequence[dict]) -> dict:
+    """Merge cumulative per-source snapshots into one cluster view:
+    counters and histograms SUM (each source counted once — the caller
+    keys sources and passes the latest snapshot per source, which is
+    what makes re-delivery idempotent); gauges take the MAX (they are
+    world-consistent values like the generation, where max = newest)."""
+    out = {"counters": {}, "gauges": {}, "histograms": {}}
+    for s in snaps:
+        if not s:
+            continue
+        for name, series in (s.get("counters") or {}).items():
+            dst = out["counters"].setdefault(name, {})
+            for k, v in series.items():
+                dst[k] = dst.get(k, 0.0) + v
+        for name, series in (s.get("gauges") or {}).items():
+            dst = out["gauges"].setdefault(name, {})
+            for k, v in series.items():
+                dst[k] = max(dst.get(k, float("-inf")), v)
+        for name, series in (s.get("histograms") or {}).items():
+            dst = out["histograms"].setdefault(name, {})
+            for k, h in series.items():
+                d = dst.get(k)
+                if d is None:
+                    dst[k] = {
+                        "buckets": list(h["buckets"]),
+                        "counts": list(h["counts"]),
+                        "sum": h["sum"],
+                        "count": h["count"],
+                    }
+                elif list(d["buckets"]) == list(h["buckets"]):
+                    d["counts"] = [
+                        a + b for a, b in zip(d["counts"], h["counts"])
+                    ]
+                    d["sum"] += h["sum"]
+                    d["count"] += h["count"]
+                else:  # bucket-schema skew (rolling upgrade): keep sums
+                    d["sum"] += h["sum"]
+                    d["count"] += h["count"]
+    return out
 
 
 def _fmt_labels(pairs: List[Tuple[str, str]]) -> str:

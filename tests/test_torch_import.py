@@ -4,6 +4,7 @@ its entry points ask for CUDA unless told otherwise.  Also: the elastic
 loop's pipeline reads the device only at its sanctioned sync points."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -39,6 +40,14 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "import edl_tpu_torch.runtime.elastic, edl_tpu_torch.launcher\n"
         "import edl_tpu_torch.checkpoint.hostdram, edl_tpu_torch.checkpoint.transfer\n"
         "import edl_tpu_torch.consensus\n"
+        "for n in ('edl_tpu_torch.serving.migrate', 'edl_tpu_torch.serving.router',\n"
+        "          'edl_tpu_torch.serving.client', 'edl_tpu_torch.telemetry.recorder',\n"
+        "          'edl_tpu_torch.telemetry.aggregate', 'edl_tpu_torch.telemetry.spans'):\n"
+        "    assert n in names, n\n"
+        "from edl_tpu_torch.serving.migrate import MigrationReceiver, migrate_out\n"
+        "from edl_tpu_torch.serving.router import RequestRouter, RouterServer, main\n"
+        "from edl_tpu_torch.serving.client import RetryingClient, RetryBudgetExhausted\n"
+        "from edl_tpu_torch.telemetry import FlightRecorder, TelemetryAggregator, get_recorder\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -47,7 +56,46 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 15
+    assert int(r.stdout.strip().splitlines()[-1]) >= 21
+
+
+def test_coordinator_metrics_is_prometheus_text_and_json_on_request():
+    """``GET /metrics`` on the port's ``CoordinatorServer`` serves
+    Prometheus text (the coordinator snapshot as gauges, merged with the
+    members' telemetry), ``?format=json`` the snapshot dict, and
+    ``HTTPCoordinator.metrics()`` reads the dict."""
+    import urllib.request
+
+    from edl_tpu_torch import telemetry
+    from edl_tpu_torch.runtime import LocalCoordinator
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer, HTTPCoordinator
+
+    coord = LocalCoordinator(target_world=1, max_world=2)
+    server = CoordinatorServer(coord, host="127.0.0.1", port=0).start(evict=False)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        client = HTTPCoordinator(f"127.0.0.1:{server.port}")
+        client.register("m0", address="127.0.0.1:1")
+        reg = telemetry.MetricsRegistry()
+        reg.counter("edl_serve_tokens_total").inc(5)
+        client.report_telemetry("m0", snapshot=reg.snapshot(), seq=1, boot="b",
+                                events=[{"kind": "serve.drain", "data": {"phase": "start"}}])
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            ctype = r.headers.get("Content-Type")
+            text = r.read().decode()
+        assert ctype.startswith("text/plain")
+        assert "# TYPE edl_generation gauge\nedl_generation 1\n" in text
+        assert "edl_world_size 1" in text and "edl_serve_tokens_total 5" in text
+        with urllib.request.urlopen(f"{base}/metrics?format=json", timeout=10) as r:
+            snap = json.loads(r.read())
+        assert snap == coord.metrics() == client.metrics()
+        assert snap["generation"] == 1 and snap["world_size"] == 1
+        assert client.metrics_text() == text
+        tel = client.telemetry()
+        assert tel["sources"] == {"m0": 1}
+        assert [e["kind"] for e in tel["events"]][-1] == "serve.drain"
+    finally:
+        server.stop()
 
 
 def test_no_port_file_imports_jax_flax_optax_or_edl_tpu():

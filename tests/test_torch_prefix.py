@@ -136,7 +136,7 @@ def test_pool_reset_invalidates_index_without_counting_evictions():
 
 
 def test_prefix_claim_longest_run_and_divergence():
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         pool = _pool(num_blocks=12)
         cache = PrefixCache(pool, BT)
         prompt = np.arange(100, 170, dtype=np.int32)  # 70 tokens

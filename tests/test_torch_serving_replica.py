@@ -109,7 +109,7 @@ def test_trainer_spill_loads_into_the_engine(trained, tmp_path):
 
 
 def test_refresh_swaps_to_newer_dram_and_disk_checkpoints(trained, tmp_path):
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         store = HostDRAMStore()
         store.put(trained["ckpts"][2])
         eng = _engine(trained["model"], store)
@@ -131,7 +131,7 @@ def test_refresh_swaps_to_newer_dram_and_disk_checkpoints(trained, tmp_path):
 
 
 def test_torn_candidate_rejected_once_old_weights_keep_serving(trained):
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         store = HostDRAMStore()
         store.put(trained["ckpts"][2])
         eng = _engine(trained["model"], store)
@@ -171,7 +171,7 @@ def test_jax_written_spill_is_rejected(trained, tmp_path):
     jstore.save_async(_jax_state(params, 7), generation=0)
     jstore.wait()
     assert os.path.exists(tmp_path / "ckpt-000000000007.json")
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         eng = _engine(trained["model"], HostDRAMStore(spill_dir=str(tmp_path)))
         assert not eng.load() and not eng.ready
         assert reg.counter("edl_serve_swap_rejected_total").value() == 1
@@ -249,7 +249,7 @@ def ready_engine(trained):
 
 
 def test_http_drain_is_503_with_retry_after_and_full_queue_is_429(ready_engine):
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         eng = ready_engine
         assert eng.load()
         batcher = ContinuousBatcher(eng, queue_limit=1)  # not started: fills
@@ -287,7 +287,7 @@ def test_http_drain_is_503_with_retry_after_and_full_queue_is_429(ready_engine):
 
 
 def test_replica_drain_finishes_in_flight_frees_kv_deregisters(ready_engine):
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         eng = ready_engine
         coord = LocalCoordinator(target_world=2, max_world=4)
         replica = ServingReplica(eng, coordinator=coord, replica_id="serve-0",
@@ -303,7 +303,7 @@ def test_replica_drain_finishes_in_flight_frees_kv_deregisters(ready_engine):
             ]
             r = replica.drain(budget_s=30.0)
             assert r["drained"] and r["in_flight"] == 0
-            assert r["progress"] == {"total": 3, "remaining": 0}
+            assert r["progress"] == {"total": 3, "migrated": 0, "remaining": 0}
             for t in tickets:
                 assert len(t.result(timeout=1.0)[0]) == 24  # none cut short
             assert eng.pool.used_blocks == 0
@@ -316,7 +316,7 @@ def test_replica_drain_finishes_in_flight_frees_kv_deregisters(ready_engine):
 
 
 def test_budget_missed_drain_stays_registered_and_retries(ready_engine):
-    with telemetry.scoped() as reg:
+    with telemetry.scoped() as (reg, _):
         eng = ready_engine
         coord = LocalCoordinator(target_world=2, max_world=4)
         replica = ServingReplica(eng, coordinator=coord, replica_id="serve-slow",
