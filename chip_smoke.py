@@ -5,9 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's serving and training paths, its elastic runtime
-and its serving fleet on the card and exits non-zero on the first
-failure.  Phases, in order:
+It drives the port's serving and training paths, its elastic runtime,
+its serving fleet and its control plane on the card and exits non-zero
+on the first failure.  Phases, in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -128,10 +128,41 @@ failure.  Phases, in order:
    leg, no duplicate, drop or restart line, the recompute check; prints
    the gap at the kill and the phase's peak memory.  Each part's launch
    counts are zeroed just before it and read just after.
-10. **Kernels line** — one JSON object listing every ported kernel with
+10. **Control plane** — a ``Controller`` and its ``Autoscaler`` over a
+    FakeKube of two nodes, ``gpu-0`` (this machine: its cards, CPUs and
+    memory) and ``gpu-1`` (one GPU, simulated: no process behind it),
+    size the ``TrainingJob`` ``lm`` (``transformer_lm`` on ``h100-1``,
+    min 1, max 2, global batch 8, checkpoint interval 4, a temp
+    checkpoint dir) through an
+    in-process ``CoordinatorServer`` found via
+    ``EDL_COORD_ADDR_TEMPLATE``.  Its trainer pod is ``python -m
+    edl_tpu_torch.launcher`` (12 steps, the card, full width) started
+    with exactly the env the job parser rendered, the downward-API
+    values and the coordinator's address substituted and a telemetry
+    report every 0.1 s (``EDL_TELEMETRY_INTERVAL``) added.  The autoscaler
+    grows ``lm`` to 2 (prewarm 2 announced while the trainer is the
+    coordinator's only member, so the world stays 1), sheds it to 1
+    when the pending ``lm-b`` arrives (placed on ``gpu-1``), and the
+    trainer's completion marks ``lm`` Succeed (its coordinator workload
+    deleted, its trainer workload kept).  Checks: exit 0; parallelism
+    1 -> 2 -> 1; states Running then Succeed; one generation; 12 steps
+    of 12/12/1/1/1 launches in the pod; its losses bit-identical to
+    ``launcher.run`` in-process; the autoscaler's observed step rate
+    (from the trainer's telemetry reports), its mean over the decisions,
+    within 20% of the history's over the same reports (the steps the
+    history logged between their arrivals, over the time between the
+    arrivals on the smoke's clock); ``local-run`` on a YAML of the same
+    configuration (``--steps 4``) printing world sizes [1] and the
+    in-process run's step-3 loss.  Prints each ``Controller.run_once``
+    ms, the PUT-to-retarget ms, submission to the first harvested
+    step, the trainer's wall time and peak memory, and the host cost of
+    ``Autoscaler.run_once`` over 64 nodes x 8 GPUs, read as
+    ``KubectlAPI`` reads a cluster's nodes, with 32 elastic jobs of
+    h100-1/8/16.
+11. **Kernels line** — one JSON object listing every ported kernel with
     its launches on the main path, error, times, bound, the shape timed,
     the achieved TFLOP/s and the share of the bound.
-11. **Last line** — ``{"ok": true, "device": {...}}``.
+12. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -2608,6 +2639,433 @@ def phase_serving_fleet(card: str):
     return out
 
 
+# -- phase 10 -------------------------------------------------------------
+
+#: the trainer pod's process: ``python -m edl_tpu_torch.launcher`` (run
+#: through runpy), which at exit writes its kernel launch counts and its
+#: peak device memory to the file named by its first argument, and dumps
+#: its threads' stacks on SIGUSR1
+CP_POD = r"""
+import atexit, faulthandler, json, runpy, signal, sys
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+out = sys.argv.pop(1)
+
+def dump():
+    import resource
+    import torch
+    import chip_smoke
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    with open(out, "w") as f:
+        json.dump({"launches": chip_smoke._all_launches(), "peak_bytes": peak,
+                   "max_rss_mb": rss}, f)
+
+atexit.register(dump)
+runpy.run_module("edl_tpu_torch.launcher", run_name="__main__", alter_sys=True)
+"""
+#: the trainer pod's arguments beside its env (the card, full width)
+CP_POD_ARGS = ()
+#: the in-process runs' model (None: the registered full-width one)
+CP_MODEL_KWARGS = None
+#: seconds between the trainer's telemetry reports (EDL_TELEMETRY_INTERVAL
+#: in the pod's env; the launcher's default, 5 s, would not report
+#: within a 12-step run)
+CP_TELEMETRY_S = 0.1
+#: controller ticks: the period, and the bound on the whole loop
+CP_TICK_S = 0.05
+CP_TIMEOUT_S = 180
+#: the host-only autoscaler tick: 64 nodes x 8 GPUs (8 nodepools of 8
+#: a3-highgpu-8g-sized nodes, as KubectlAPI reads them: no pool shape,
+#: replicas pack by GPU count), 32 elastic jobs
+CP_BIG_NODES = 64
+CP_BIG_JOBS = 32
+CP_BIG_TICKS = 5
+
+
+def _cp_job_yaml(name, mn, mx, port, checkpoint_dir=""):
+    """The control plane's GPU TrainingJob (transformer_lm on h100-1,
+    global batch 8, checkpoint interval 4)."""
+    return f"""apiVersion: edl.tpu.dev/v1
+kind: TrainingJob
+metadata: {{name: {name}}}
+spec:
+  fault_tolerant: {"true" if mn < mx else "false"}
+  global_batch_size: {TRAIN_BATCH}
+  checkpoint_interval_steps: {ELASTIC_INTERVAL}
+  checkpoint_dir: "{checkpoint_dir}"
+  port: {port}
+  trainer:
+    entrypoint: transformer_lm
+    min_instance: {mn}
+    max_instance: {mx}
+    slice_topology: h100-1
+    resources:
+      requests: {{cpu: "1", memory: 8Gi}}
+      limits: {{nvidia.com/gpu: 1}}
+"""
+
+
+def _host_node(name, gpus):
+    """A FakeKube node with this host's CPUs and memory."""
+    import os
+
+    from edl_tpu_torch.cluster.kube import NodeInfo
+
+    mem_mb = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // (1 << 20)
+    return NodeInfo(name=name, cpu_milli=1000 * (os.cpu_count() or 1), memory_mega=mem_mb,
+                    gpus=gpus)
+
+
+def _cp_history(path):
+    import os
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _cp_big_tick() -> dict:
+    """Host-only cost of ``Autoscaler.run_once`` over a FakeKube of
+    CP_BIG_NODES 8-GPU nodes, each read from its Node object as
+    ``KubectlAPI.list_nodes`` reads it, with CP_BIG_JOBS elastic jobs
+    of mixed h100-1/8/16 (in-process coordinators; no kernel runs)."""
+    from edl_tpu_torch.autoscaler.scaler import Autoscaler
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.fake_kubectl import node_manifest
+    from edl_tpu_torch.cluster.kube import FakeKube, NodeInfo, node_from_manifest
+    from edl_tpu_torch.resource.training_job import TrainingJob
+    from edl_tpu_torch.runtime.coordinator import LocalCoordinator
+
+    kube = FakeKube([node_from_manifest(node_manifest(NodeInfo(
+        name=f"a3-{i:02d}", cpu_milli=208000, memory_mega=1_800_000, gpus=8,
+        pool=f"pool-{i // 8}"))) for i in range(CP_BIG_NODES)])
+    if any(n.gpu_topology for n in kube.list_nodes()):
+        fail("a node read from its Node object declared a pool shape")
+    cluster = Cluster(kube)
+    coords = {}
+    a = Autoscaler(cluster, coord_client_factory=lambda job: coords.setdefault(
+        job.name, LocalCoordinator(target_world=1, max_world=job.spec.trainer.max_instance)))
+    for k in range(CP_BIG_JOBS):
+        gpus = (1, 8, 16)[k % 3]
+        job = TrainingJob.from_manifest({
+            "apiVersion": "edl.tpu.dev/v1", "kind": "TrainingJob", "metadata": {"name": f"j{k:02d}"},
+            "spec": {"fault_tolerant": True, "trainer": {
+                "min_instance": 1, "max_instance": 4, "slice_topology": f"h100-{gpus}",
+                "resources": {"requests": {"cpu": "8", "memory": "64Gi"}}}}}).validate()
+        cluster.create_trainer_workload(job)
+        a.on_add(job)
+    ms = []
+    for _ in range(CP_BIG_TICKS):
+        t0 = time.perf_counter()
+        plan = a.run_once()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if plan is None:
+            fail("the 64-node autoscaler tick decided nothing")
+    r = cluster.inquiry_resource()
+    return {"nodes": CP_BIG_NODES, "gpus": r.gpu_total, "jobs": CP_BIG_JOBS,
+            "run_once_ms": ms, "first_tick_ms": ms[0],
+            "steady_tick_ms_median": float(np.median(ms[1:])), "gpus_in_use": r.gpu_limit,
+            "actuations_first_tick": len(a.plans[0].targets)}
+
+
+def phase_control_plane(card: str):
+    """The control plane sizes a trainer pod on the card: a ``Controller``
+    and its ``Autoscaler`` over a FakeKube of this machine (gpu-0) and
+    one simulated 1-GPU node (gpu-1) grow ``lm`` 1 -> 2, shed it back to
+    1 for the pending ``lm-b``, and mark it Succeed when its trainer (the
+    launcher, started with the env the job parser rendered) reports
+    completion.  Then ``local-run`` on the same configuration, and the
+    host cost of a 64-node autoscaler tick."""
+    import contextlib
+    import inspect
+    import io
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch import cli, launcher
+    from edl_tpu_torch.autoscaler.scaler import Autoscaler
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.kube import FakeKube
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.controller.jobparser import parse_to_trainer_manifests
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.resource.training_job import TrainingJob
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+    from edl_tpu_torch.runtime.coordinator import LocalCoordinator
+
+    layers = get_model("transformer_lm", **(CP_MODEL_KWARGS or {})).decode.layers
+    want = {"flash_fwd": layers, "flash_bwd": layers, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    out = {"card": card, "steps": ELASTIC_STEPS, "telemetry_interval_s": CP_TELEMETRY_S}
+    tmp = tempfile.mkdtemp(prefix="edl-cp-")
+    servers, proc = {}, None
+    t_phase = time.perf_counter()
+    old_template = os.environ.get("EDL_COORD_ADDR_TEMPLATE")
+    try:
+        # each job's coordinator, found as 127.0.0.1:<the job's port>
+        # (the cluster-DNS stand-in of tests/test_control_plane.py)
+        for name, mx in (("lm", 2), ("lm-b", 1)):
+            servers[name] = CoordinatorServer(
+                LocalCoordinator(target_world=1, max_world=mx, heartbeat_timeout=30),
+                host="127.0.0.1", port=0).start()
+        os.environ["EDL_COORD_ADDR_TEMPLATE"] = "127.0.0.1:{port}"
+        coord = servers["lm"].coordinator
+        target_at, put_at = [], []
+        real_target = coord.set_target_world
+
+        def timed_target(n, trace_id=""):
+            real_target(n, trace_id=trace_id)
+            target_at.append((n, time.perf_counter()))
+
+        coord.set_target_world = timed_target
+        # the trainer's report arrivals and the autoscaler's telemetry
+        # reads, each on this process's wall clock
+        reports_at, reads = [], []
+        real_report, real_telemetry = coord.report_telemetry, coord.telemetry
+
+        def timed_report(trainer_id, *a, **kw):
+            reports_at.append((trainer_id, time.time()))
+            return real_report(trainer_id, *a, **kw)
+
+        def timed_telemetry():
+            tel = real_telemetry()
+            reads.append((time.time(), tel["step_rate"]))
+            return tel
+
+        coord.report_telemetry, coord.telemetry = timed_report, timed_telemetry
+        kube = FakeKube([_host_node("gpu-0", torch.cuda.device_count()), _host_node("gpu-1", 1)])
+        out["nodes"] = {"gpu-0": "this machine", "gpu-1": "simulated: no process behind it"}
+        log({"control_plane_nodes": {n.name: {"gpus": n.gpus, "cpu_milli": n.cpu_milli,
+                                              "memory_mega": n.memory_mega}
+                                     for n in kube.list_nodes()}})
+        cluster = Cluster(kube)
+        real_put = cluster.update_parallelism
+
+        def timed_put(job, n):
+            put_at.append((job.name, n, time.perf_counter()))
+            return real_put(job, n)
+
+        cluster.update_parallelism = timed_put
+        ctrl = Controller(cluster, Autoscaler(cluster))
+        job = TrainingJob.from_yaml(_cp_job_yaml("lm", 1, 2, servers["lm"].port, f"{tmp}/ckpt"))
+        t_submit = time.time()
+        ctrl.on_add(job)
+        pod = [p for p in kube.list_pods() if p.job_name == "lm"]
+        if len(pod) != 1 or pod[0].node != "gpu-0":
+            fail(f"lm's first pod is not on gpu-0: {pod}")
+        pod = pod[0]
+
+        # the trainer pod: exactly the rendered env, with the downward
+        # API's values and the coordinator's address substituted
+        rendered = parse_to_trainer_manifests(job)[0]["spec"]["template"]["spec"]["containers"][0]
+        env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+        for e in rendered["env"]:
+            env[e["name"]] = e.get("value", "")
+        env.update(EDL_POD_NAME=pod.name, EDL_POD_IP="127.0.0.1",
+                   EDL_COORDINATOR_ADDR=f"127.0.0.1:{servers['lm'].port}",
+                   EDL_TELEMETRY_INTERVAL=str(CP_TELEMETRY_S))
+        out["pod_env"] = {e["name"]: env[e["name"]] for e in rendered["env"]}
+        hist = f"{tmp}/history.jsonl"
+        pod_out = f"{tmp}/pod.json"
+        if rendered["command"] != ["python", "-m", "edl_tpu_torch.launcher"]:
+            fail(f"the trainer pod's command is {rendered['command']}")
+        t_pod = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CP_POD, pod_out, "--steps", str(ELASTIC_STEPS),
+             "--history-file", hist, *CP_POD_ARGS],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        pod_log = []
+        threading.Thread(target=lambda: pod_log.extend(proc.stdout), daemon=True).start()
+
+        ticks, states, parallelism, prewarm_alone, decisions = [], [], [], None, []
+        lm_b, n_plans = None, 0
+        parallelism.append(kube.get_workload("lm-trainer").parallelism)
+        deadline = time.monotonic() + CP_TIMEOUT_S
+        while True:
+            if time.monotonic() > deadline:
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGUSR1)  # the pod's stacks into its log
+                    time.sleep(2)
+                tail = b"".join(pod_log).decode(errors="replace")[-6000:]
+                fail(f"control plane: no Succeed within {CP_TIMEOUT_S} s "
+                     f"(trainer rc {proc.poll()}, states {states}, parallelism "
+                     f"{parallelism}); the pod's log ends:\n{tail}")
+            t0 = time.perf_counter()
+            n_reads = len(reads)
+            ctrl.run_once()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            # each decision on lm that observed a step rate, with the
+            # telemetry read of this tick that gave it
+            for p in ctrl.autoscaler.plans[n_plans:]:
+                for d in p.decisions or ():
+                    rate = d["observed"].get("step_rate") if d["job"] == "lm" else None
+                    if rate:
+                        read = [t for t, r in reads[n_reads:] if r == rate]
+                        decisions.append((read[-1] if read else None, rate))
+            n_plans = len(ctrl.autoscaler.plans)
+            st = ctrl.jobs["lm"].status.state.value
+            if not states or states[-1] != st:
+                states.append(st)
+            w = kube.get_workload("lm-trainer")
+            if not parallelism or parallelism[-1] != w.parallelism:
+                parallelism.append(w.parallelism)
+            plan = coord.plan()
+            if (prewarm_alone is None and plan is not None and plan.prewarm == 2
+                    and coord.members() == [pod.name]):
+                prewarm_alone = {"prewarm": plan.prewarm, "members": coord.members(),
+                                 "world_size": plan.world_size, "generation": plan.generation}
+            # lm-b arrives once the trainer steps (its first harvested step)
+            if lm_b is None and parallelism == [1, 2] and any("step" in x for x in _cp_history(hist)):
+                lm_b = ctrl.on_add(TrainingJob.from_yaml(
+                    _cp_job_yaml("lm-b", 1, 1, servers["lm-b"].port)))
+                t_lm_b = time.perf_counter()
+            if st == "Succeed":
+                break
+            time.sleep(CP_TICK_S)
+        rc = proc.wait(timeout=120)
+        out["trainer_wall_s"] = time.perf_counter() - t_pod
+        if rc != 0:
+            tail = b"".join(pod_log).decode(errors="replace")[-6000:]
+            fail(f"the trainer pod exited {rc}; its log ends:\n{tail}")
+        with open(pod_out) as f:
+            pod_stats = json.load(f)
+        out["trainer_peak_gb"] = pod_stats["peak_bytes"] / 1e9
+        out["trainer_max_rss_mb"] = pod_stats["max_rss_mb"]
+        out["controller_run_once_ms"] = [round(t, 3) for t in ticks]
+        out["controller_run_once_ms_p50_p90_max"] = [
+            float(np.percentile(ticks, 50)), float(np.percentile(ticks, 90)), max(ticks)]
+        out["states"] = states
+        out["parallelism"] = parallelism
+        out["prewarm_while_alone"] = prewarm_alone
+        if states != ["Running", "Succeed"]:
+            fail(f"lm's states were {states}, want Running then Succeed")
+        if parallelism != [1, 2, 1]:
+            fail(f"lm's parallelism went {parallelism}, want 1 -> 2 -> 1")
+        if not prewarm_alone or prewarm_alone["members"] != [pod.name]:
+            fail(f"the plan never carried prewarm 2 with the trainer its only member: {prewarm_alone}")
+        b_pods = [(p.phase, p.node) for p in kube.list_pods() if p.job_name == "lm-b"]
+        if b_pods != [("Running", "gpu-1")]:
+            fail(f"lm-b's pods are {b_pods}, want one Running on gpu-1")
+        sims = [p.name for p in kube.list_pods() if p.job_name == "lm" and p.node == "gpu-1"]
+        if sims:
+            fail(f"the simulated lm pod on gpu-1 survived the shed: {sims}")
+        if kube.get_workload("lm-coordinator") is not None or kube.get_workload("lm-trainer") is None:
+            fail("Succeed must delete lm's coordinator workload and keep its trainer workload")
+        grow = [t for name, n, t in put_at if name == "lm" and n == 2]
+        retarget = [t for n, t in target_at if n == 2]
+        if not grow or not retarget:
+            fail(f"no PUT / retarget to 2: {put_at} {target_at}")
+        out["put_to_target_ms"] = (retarget[0] - grow[0]) * 1e3
+        shed = [t for name, n, t in put_at if name == "lm" and n == 1]
+        out["lm_b_to_shed_put_ms"] = (shed[0] - t_lm_b) * 1e3 if shed else None
+
+        # the trainer: one generation, 12 steps, the kernels every step
+        h = _cp_history(hist)
+        steps = [x for x in h if "step" in x]
+        resizes = [x["resize"] for x in h if "resize" in x]
+        if [x["step"] for x in steps] != list(range(ELASTIC_STEPS)):
+            fail(f"the trainer logged steps {[x['step'] for x in steps]}")
+        if len(resizes) != 1 or {x["world_size"] for x in steps} != {1}:
+            fail(f"the trainer resized after its first generation: {resizes}")
+        out["submit_to_first_step_s"] = steps[0]["t"] - t_submit
+        expect = {k: v * ELASTIC_STEPS for k, v in want.items()}
+        out["trainer_launches"] = pod_stats["launches"]
+        if pod_stats["launches"] != expect:
+            fail(f"the trainer pod launched {pod_stats['launches']}, want {expect}")
+
+        # the observed step rate against the trainer's own.  A decision's
+        # rate is the reported step count's change over the coordinator's
+        # last `rate_window` reports before its read (the aggregator's
+        # public default).  The history's rate over the same reports is
+        # the steps the trainer logged between their arrivals, divided by
+        # the time between those arrivals on this process's clock: the
+        # count is the trainer's own, the window and its length the
+        # smoke's.  (The steps' own first-to-last span is no rate: the
+        # trainer harvests them in bursts.)
+        from edl_tpu_torch.telemetry.aggregate import TelemetryAggregator
+
+        window = inspect.signature(TelemetryAggregator).parameters["rate_window"].default
+        mine = [t for src, t in reports_at if src == pod.name]
+        checked = []
+        for t_read, rate in decisions:
+            pts = [t for t in mine if t_read is not None and t <= t_read][-window:]
+            if len(pts) >= 2:
+                k = sum(1 for x in steps if pts[0] < x["t"] <= pts[-1])
+                checked.append({"observed": rate, "history": k / (pts[-1] - pts[0]),
+                                "steps": k, "reports": len(pts),
+                                "reports_span_s": pts[-1] - pts[0]})
+        # A step harvested while a report is in flight may fall on the
+        # other side of a window's edge; the mean over the decisions is
+        # held to the bar, each one printed beside it.
+        out["step_rate_decisions"] = len(decisions)
+        out["step_rate_unpaired"] = sum(1 for t, _ in decisions if t is None)
+        out["step_rate_checked"] = checked
+        out["history_steps_per_s"] = (len(steps) - 1) / (steps[-1]["t"] - steps[0]["t"])
+        if len(checked) < 3:
+            fail(f"{len(checked)} autoscaler decisions observed a step rate from the trainer's "
+                 f"reports, want 3 or more ({len(decisions)} with a rate)")
+        rates = {"observed": float(np.mean([c["observed"] for c in checked])),
+                 "history": float(np.mean([c["history"] for c in checked])),
+                 "decisions": len(checked),
+                 "worst": max(checked, key=lambda c: abs(c["observed"] - c["history"]))}
+        out["step_rate"] = rates
+        if abs(rates["observed"] - rates["history"]) > 0.2 * rates["history"]:
+            fail(f"the observed step rate {rates['observed']} is not within 20% of the "
+                 f"trainer's {rates['history']} over the same reports ({rates})")
+
+        # the same configuration in-process, no coordinator: bit-identical
+        _reset_launches()
+        ref = launcher.run("transformer_lm", steps=ELASTIC_STEPS, seed=SEED,
+                           global_batch_size=TRAIN_BATCH, checkpoint_interval=ELASTIC_INTERVAL,
+                           lr=TRAIN_LR, device="cuda", model_kwargs=CP_MODEL_KWARGS)
+        ref_losses = [r.loss for r in ref.history]
+        _check_run_launches(ref, want, "control plane reference")
+        if [x["loss"] for x in steps] != ref_losses:
+            fail(f"the trainer pod's losses {[x['loss'] for x in steps]} are not bit-identical "
+                 f"to launcher.run's {ref_losses}")
+        out["losses"] = ref_losses
+        del ref
+        torch.cuda.empty_cache()
+
+        # local-run on a YAML of the same configuration
+        spec = f"{tmp}/lm.yaml"
+        with open(spec, "w") as f:
+            f.write(_cp_job_yaml("lm", 1, 2, servers["lm"].port, f"{tmp}/local-run"))
+        buf = io.StringIO()
+        args = ["local-run", spec, "--steps", "4"] + (
+            ["--device", "cpu", "--tiny"] if CP_MODEL_KWARGS else [])
+        with contextlib.redirect_stdout(buf):
+            if cli.main(args) != 0:
+                fail("local-run failed")
+        text = buf.getvalue()
+        summary = json.loads(text[text.index("{"):])
+        out["local_run"] = summary
+        if summary["world_sizes_seen"] != [1] or summary["final_loss"] != round(ref_losses[3], 4):
+            fail(f"local-run printed {summary}, want world sizes [1] and final loss "
+                 f"{round(ref_losses[3], 4)}")
+        torch.cuda.empty_cache()
+        out["autoscaler_64_nodes"] = _cp_big_tick()
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for s in servers.values():
+            s.stop()
+        if old_template is None:
+            os.environ.pop("EDL_COORD_ADDR_TEMPLATE", None)
+        else:
+            os.environ["EDL_COORD_ADDR_TEMPLATE"] = old_template
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"control_plane": out})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -2632,6 +3090,7 @@ def main() -> int:
     phase_elastic(card)
     phase_serving_replica(card)
     phase_serving_fleet(card)
+    phase_control_plane(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

@@ -1,0 +1,351 @@
+"""L5 CLI (counterpart of ``edl_tpu/cli.py``): submit / list / kill /
+manifests / crd / deploy / local-run / local-sim / controller.
+
+The reference had no CLI of its own — users went through the external
+``paddlecloud`` client/server, which also created the k8s objects
+(``pkg/resource/training_job.go:39-58``, ``pkg/controller.go:115-118``).
+This CLI subsumes that role:
+
+- ``submit``      validate a TrainingJob YAML and apply the CR (kubectl)
+- ``manifests``   print the rendered trainer/coordinator manifests
+- ``crd``         print the TrainingJob CustomResourceDefinition
+- ``deploy``      print/apply the control-plane install
+- ``list``        list TrainingJobs (kubectl)
+- ``kill``        delete a TrainingJob (kubectl)
+- ``local-run``   train the job's model in this process on one device
+                  (the card unless ``--device cpu``) -> loss summary
+- ``local-sim``   controller + autoscaler closed loop against an
+                  in-memory fake cluster of GPU nodes (no k8s needed)
+- ``controller``  the control-plane daemon against a cluster
+
+Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``ingest``,
+``metrics``, ``route``, ``fleet``, ``serve`` and ``trace`` are not
+ported yet (ROADMAP A-6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from typing import List, Optional
+
+from edl_tpu_torch.resource.training_job import TrainingJob, crd_manifest
+
+
+def _load_job(path: str) -> TrainingJob:
+    with open(path) as f:
+        text = f.read()
+    return TrainingJob.from_yaml(text).validate()
+
+
+def _dump_yaml(objs) -> str:
+    import yaml
+
+    if isinstance(objs, dict):
+        objs = [objs]
+    return "---\n".join(yaml.safe_dump(o, sort_keys=False) for o in objs)
+
+
+def _kubectl(
+    argv: List[str], input: Optional[str] = None, kubectl: str = "kubectl"
+) -> int:
+    p = subprocess.run(
+        [kubectl, *argv], input=input, text=True, capture_output=True
+    )
+    sys.stdout.write(p.stdout)
+    sys.stderr.write(p.stderr)
+    return p.returncode
+
+
+def cmd_submit(args) -> int:
+    job = _load_job(args.spec)
+    manifest = job.to_manifest()
+    if args.dry_run:
+        print(_dump_yaml(manifest))
+        return 0
+    return _kubectl(
+        ["apply", "-f", "-"],
+        input=json.dumps(manifest),
+        kubectl=args.kubectl,
+    )
+
+
+def cmd_manifests(args) -> int:
+    from edl_tpu_torch.controller.jobparser import (
+        parse_to_coordinator,
+        parse_to_serving_manifests,
+        parse_to_trainer_manifests,
+    )
+
+    job = _load_job(args.spec)
+    objs = (
+        parse_to_trainer_manifests(job)
+        + parse_to_coordinator(job)
+        + parse_to_serving_manifests(job)
+    )
+    print(_dump_yaml(objs))
+    return 0
+
+
+def cmd_crd(args) -> int:
+    print(_dump_yaml(crd_manifest()))
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    """Print (or apply) the full control-plane install: namespace, CRD,
+    RBAC, controller Deployment — `kubectl apply -f <(edl deploy)`."""
+    from edl_tpu_torch.controller.deploy import deploy_manifests
+    from edl_tpu_torch.resource.training_job import DEFAULT_IMAGE
+
+    objs = deploy_manifests(image=args.image or DEFAULT_IMAGE)
+    if args.apply:
+        return _kubectl(
+            ["apply", "-f", "-"],
+            input=json.dumps(
+                {"apiVersion": "v1", "kind": "List", "items": objs}
+            ),
+            kubectl=args.kubectl,
+        )
+    print(_dump_yaml(objs))
+    return 0
+
+
+def cmd_list(args) -> int:
+    return _kubectl(["get", "trainingjobs", "-A"], kubectl=args.kubectl)
+
+
+def cmd_kill(args) -> int:
+    return _kubectl(["delete", "trainingjob", args.name], kubectl=args.kubectl)
+
+
+def cmd_local_run(args) -> int:
+    """One process, one device: train the job's model through the
+    launcher's elastic loop (``launcher.run`` with an in-process
+    coordinator, world 1) with the spec's global batch, checkpoint
+    interval and checkpoint directory, and print the loss summary.
+    The JAX CLI's ``--resize-at`` resizes across virtual devices in one
+    process; the port's worlds of several members are processes
+    (``python -m edl_tpu_torch.launcher`` behind a coordinator)."""
+    from edl_tpu_torch import launcher
+
+    job = _load_job(args.spec)
+    et = launcher.run(
+        entrypoint=job.spec.trainer.entrypoint,
+        steps=args.steps,
+        global_batch_size=job.spec.global_batch_size,
+        checkpoint_interval=job.spec.checkpoint_interval_steps,
+        seed=args.seed,
+        data_dir=args.data_dir or job.spec.dataset_dir,
+        checkpoint_dir=args.checkpoint_dir or job.spec.checkpoint_dir,
+        device=args.device,
+        model_kwargs={"tiny": True} if args.tiny else None,
+    )
+    first = et.history[0] if et.history else None
+    last = et.history[-1] if et.history else None
+    summary = {
+        "job": job.name,
+        "model": et.model.name,
+        "steps": len(et.history),
+        "first_loss": round(first.loss, 4) if first else None,
+        "final_loss": round(last.loss, 4) if last else None,
+        "resizes": [
+            {
+                "generation": e.generation,
+                "world_size": e.world_size,
+                "seconds": round(e.seconds, 4),
+                "graceful": e.graceful,
+            }
+            for e in et.resize_events
+        ],
+        "world_sizes_seen": sorted({r.world_size for r in et.history}),
+    }
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def cmd_controller(args) -> int:
+    """Run the control plane against a real cluster: watch TrainingJob
+    CRs and reconcile/autoscale forever — the reference's whole
+    deliverable (``cmd/edl/edl.go:47-50``: two goroutines, watch +
+    autoscaler loop), plus the creation wiring its TODO promised."""
+    import time
+
+    from edl_tpu_torch.autoscaler.scaler import Autoscaler
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.kube import KubectlAPI
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.controller.watch import TrainingJobWatcher
+
+    kube = KubectlAPI(namespace=args.namespace, kubectl=args.kubectl)
+    cluster = Cluster(kube)
+    ctrl = Controller(cluster, Autoscaler(cluster, max_load_desired=args.max_load))
+    watcher = TrainingJobWatcher(kube.list_training_jobs, ctrl)
+
+    n = 0
+    while True:
+        # apart: a failing watch must not stop the reconcile of the
+        # jobs already known, nor the reverse
+        for step in (watcher.poll_once, ctrl.run_once):
+            try:
+                step()
+            except Exception:
+                import traceback
+
+                traceback.print_exc()
+        n += 1
+        if args.iterations and n >= args.iterations:
+            break
+        time.sleep(args.interval)
+    if args.iterations:
+        print(
+            json.dumps(
+                {"jobs": ctrl.job_statuses(), "cluster": ctrl.cluster_metrics()},
+                indent=2,
+            )
+        )
+    return 0
+
+
+def cmd_local_sim(args) -> int:
+    """Controller + autoscaler closed loop against FakeKube: shows the
+    scheduling/scaling story without k8s or devices."""
+    from edl_tpu_torch.autoscaler.scaler import Autoscaler
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.kube import FakeKube, NodeInfo
+    from edl_tpu_torch.controller.controller import Controller
+
+    jobs = [_load_job(p) for p in args.spec]
+    kube = FakeKube(
+        [
+            NodeInfo(
+                name=f"pool-{i}",
+                cpu_milli=args.node_cpu_milli,
+                memory_mega=args.node_memory_mega,
+                gpus=args.node_gpus,
+            )
+            for i in range(args.nodes)
+        ]
+    )
+    cluster = Cluster(kube)
+    ctrl = Controller(cluster, Autoscaler(cluster, max_load_desired=args.max_load))
+    for job in jobs:
+        ctrl.on_add(job)
+    for i in range(args.iterations):
+        ctrl.run_once()
+        kube.retry_scheduling()
+    ctrl.reconcile_status()
+    print(
+        json.dumps(
+            {"jobs": ctrl.job_statuses(), "cluster": ctrl.cluster_metrics()},
+            indent=2,
+        )
+    )
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="edl", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("submit", help="validate + apply a TrainingJob")
+    s.add_argument("spec")
+    s.add_argument("--dry-run", action="store_true")
+    s.add_argument("--kubectl", default="kubectl", help="kubectl binary")
+    s.set_defaults(fn=cmd_submit)
+
+    s = sub.add_parser("manifests", help="print rendered k8s manifests")
+    s.add_argument("spec")
+    s.set_defaults(fn=cmd_manifests)
+
+    s = sub.add_parser("crd", help="print the TrainingJob CRD")
+    s.set_defaults(fn=cmd_crd)
+
+    s = sub.add_parser(
+        "deploy", help="print/apply the control-plane install (CRD+RBAC+controller)"
+    )
+    s.add_argument("--image", default=None, help="controller image override")
+    s.add_argument("--apply", action="store_true", help="kubectl apply it")
+    s.add_argument("--kubectl", default="kubectl")
+    s.set_defaults(fn=cmd_deploy)
+
+    s = sub.add_parser("list", help="list TrainingJobs")
+    s.add_argument("--kubectl", default="kubectl", help="kubectl binary")
+    s.set_defaults(fn=cmd_list)
+
+    s = sub.add_parser("kill", help="delete a TrainingJob")
+    s.add_argument("name")
+    s.add_argument("--kubectl", default="kubectl", help="kubectl binary")
+    s.set_defaults(fn=cmd_kill)
+
+    s = sub.add_parser("local-run", help="train the job's model on one device")
+    s.add_argument("spec")
+    s.add_argument("--steps", type=int, default=50)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--device", default=None, help="torch device (default: cuda)")
+    s.add_argument("--tiny", action="store_true", help="the model's tiny configuration")
+    s.add_argument(
+        "--data-dir",
+        default="",
+        help=(
+            "train from a file-backed array store (memory-mapped .npy "
+            "directory, see edl_tpu_torch.runtime.datasets) instead of "
+            "synthetic data; overrides spec.dataset_dir"
+        ),
+    )
+    s.add_argument(
+        "--checkpoint-dir",
+        default="",
+        help=(
+            "durable checkpoint directory (spill + cold-start restore); "
+            "overrides spec.checkpoint_dir"
+        ),
+    )
+    s.set_defaults(fn=cmd_local_run)
+
+    s = sub.add_parser(
+        "controller", help="run the control-plane daemon against a cluster"
+    )
+    s.add_argument("--namespace", default="default")
+    s.add_argument("--kubectl", default="kubectl", help="kubectl binary")
+    s.add_argument(
+        "--interval", type=float, default=5.0, help="reconcile period (ref 5s tick)"
+    )
+    s.add_argument(
+        "--iterations",
+        type=int,
+        default=0,
+        help="stop after N reconcile loops and print statuses (0 = forever)",
+    )
+    s.add_argument("--max-load", type=float, default=0.97)
+    s.set_defaults(fn=cmd_controller)
+
+    s = sub.add_parser("local-sim", help="controller+autoscaler vs fake cluster")
+    s.add_argument("spec", nargs="+")
+    s.add_argument("--nodes", type=int, default=4)
+    s.add_argument("--node-gpus", type=int, default=4)
+    s.add_argument("--node-cpu-milli", type=int, default=8000)
+    s.add_argument("--node-memory-mega", type=int, default=32768)
+    s.add_argument("--max-load", type=float, default=0.97)
+    s.add_argument("--iterations", type=int, default=6)
+    s.set_defaults(fn=cmd_local_sim)
+
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        return args.fn(args)
+    except BrokenPipeError:
+        # Downstream pager/head closed the pipe: normal CLI etiquette.
+        import os
+
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

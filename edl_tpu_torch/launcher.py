@@ -35,10 +35,10 @@ def env_config() -> dict:
     """Parse the EDL_* pod env contract into a config dict.
 
     The JAX launcher's contract, less what has no counterpart here:
-    ``EDL_SLICE_TOPOLOGY`` (TPU slice shapes), ``EDL_COMPILE_CACHE_DIR``
-    (the XLA compilation cache), ``EDL_JAX_COORD_PORT`` (renamed
-    ``EDL_DIST_PORT``: the base port of the per-generation
-    ``torch.distributed`` rendezvous), and keys of parts not ported yet:
+    ``EDL_COMPILE_CACHE_DIR`` (the XLA compilation cache),
+    ``EDL_JAX_COORD_PORT`` (renamed ``EDL_DIST_PORT``: the base port of
+    the per-generation ``torch.distributed`` rendezvous), and keys of
+    parts not ported yet:
     ``EDL_SHARD_ONLY`` (the checkpoint fabric), ``EDL_PARALLELISM``
     (mesh layouts), ``EDL_FLIGHT_RECORDER_FILE`` and ``EDL_CHAOS_SPEC``.
     The serving pod's keys (``serving.server.serve_run``) are ported,
@@ -52,6 +52,9 @@ def env_config() -> dict:
         "coordinator_addr": e.get("EDL_COORDINATOR_ADDR", ""),
         "entrypoint": e.get("EDL_ENTRYPOINT", ""),
         "workspace": e.get("EDL_WORKSPACE", ""),
+        # the replica's GPU topology ("h100-1"; checked against the
+        # pod's visible cards at start)
+        "slice_topology": e.get("EDL_SLICE_TOPOLOGY", "h100-1"),
         "min_instance": int(e.get("EDL_MIN_INSTANCE", "1")),
         "max_instance": int(e.get("EDL_MAX_INSTANCE", "1")),
         "num_passes": int(e.get("EDL_NUM_PASSES", "1")),
@@ -99,6 +102,34 @@ def env_config() -> dict:
             else (int(e["JOB_COMPLETION_INDEX"]) if e.get("JOB_COMPLETION_INDEX") else None)
         ),
     }
+
+
+def check_slice_topology(topology: str, device: torch.device) -> None:
+    """Cross-check the pod's visible cards against the declared replica
+    topology (the JAX ``_check_slice_topology``): a trainer pod owns one
+    host's worth of its replica, so on CUDA the visible device count
+    must equal the topology's GPUs per host.  Only warns: spec or
+    deployment drift surfaces loudly instead of training at the wrong
+    scale.  CPU runs and unknown names are not checked."""
+    import sys
+
+    if device.type != "cuda":
+        return
+    from edl_tpu_torch.cluster.gpu_topology import get_topology
+
+    try:
+        topo = get_topology(topology)
+    except ValueError:
+        return
+    per_host = topo.gpus // max(1, topo.hosts)
+    local = torch.cuda.device_count()
+    if topo.gpus and local != per_host:
+        print(
+            f"[edl] replica topology {topology} expects {per_host} "
+            f"GPUs/host but this pod sees {local} CUDA devices; "
+            "check the job's nvidia.com/gpu limit and the node pool",
+            file=sys.stderr,
+        )
 
 
 #: Per-generation rendezvous ports rotate through this window above the
@@ -181,7 +212,11 @@ def make_world_builder(
         rank = plan.members.index(trainer_id)
         host, base = plan.addresses[0].rsplit(":", 1)
         if device.type == "cuda":
-            torch.cuda.set_device(device)
+            # an index-less "cuda" means the current card (set_device
+            # refuses a device without an index)
+            torch.cuda.set_device(
+                device.index if device.index is not None else torch.cuda.current_device()
+            )
         t1 = time.perf_counter()
         for attempt in range(_FORMATION_ATTEMPTS):
             port = rendezvous_port(int(base), plan.generation, attempt)
@@ -261,6 +296,7 @@ def run(
 
     cfg = env_config()
     device = resolve_device(device)
+    check_slice_topology(cfg["slice_topology"], device)
     model = get_model(entrypoint or cfg["entrypoint"] or "transformer_lm", **(model_kwargs or {}))
     gbs = global_batch_size or cfg["global_batch_size"] or 8
     pod_address = pod_address or cfg["pod_address"]
@@ -308,6 +344,7 @@ def run(
     et.pipeline_depth = cfg["pipeline_depth"]
     et.consensus_bus = cfg["consensus"]
     et.collective_timeout = cfg["collective_timeout"]
+    et.telemetry_interval = cfg["telemetry_interval"]
     et.heartbeat_ids = [trainer_id]
     et.register_address = pod_address
     et.register_replica = cfg["replica"]
@@ -339,8 +376,10 @@ def run(
     prev_term = signal.signal(signal.SIGTERM, _graceful_leave) if main_thread else None
 
     def on_step(rec):
+        # "t": the wall clock at the step's harvest
         log({"step": rec.step, "generation": rec.generation,
-             "world_size": rec.world_size, "loss": rec.loss, "seconds": rec.seconds})
+             "world_size": rec.world_size, "loss": rec.loss, "seconds": rec.seconds,
+             "t": time.time()})
 
     try:
         if steps is None:
@@ -350,6 +389,7 @@ def run(
         if et.state is not None:
             et.store.save_async(et.state, generation=et.generation)
         et.store.wait()
+        et.flush_telemetry()
         try:
             coordinator.report_complete(step=et.history[-1].step if et.history else -1)
         except Exception:

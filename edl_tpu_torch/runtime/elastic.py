@@ -41,9 +41,14 @@ accepted and recorded (``prewarm_hints``) and does nothing else.
 loaded inside the barrier, the port's form of "a warm resize compiles
 nothing".
 
+The heartbeat thread also ships this process's cumulative telemetry
+snapshot to the coordinator every ``telemetry_interval`` seconds (the
+JAX ``_maybe_report_telemetry`` / ``_report_telemetry``): the step rate
+the autoscaler's decision log observes comes from these reports.
+
 Not ported yet: the sharded checkpoint fabric (``_fabric_*``), chaos
-points, ``StepProfiler``, the flight recorder, causal traces and the
-telemetry reports that ride the heartbeat.
+points, ``StepProfiler``, the elastic loop's own flight-recorder events
+and causal traces.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import sys
 import threading
 import time
 import traceback
+import uuid
 import warnings
 from collections import deque
 from dataclasses import dataclass, field
@@ -286,7 +292,21 @@ class ElasticTrainer:
         self._m_pipeline_depth = self.telemetry.gauge("edl_pipeline_depth")
         self._m_device_wait = self.telemetry.histogram("edl_device_wait_seconds")
         self._m_quiesce = self.telemetry.histogram("edl_consensus_quiesce_seconds")
+        self._m_reports = self.telemetry.counter("edl_telemetry_reports_total")
+        self.recorder = telemetry.get_recorder()
         self.ledger = GoodputLedger(registry=self.telemetry)
+        #: seconds between telemetry reports on the heartbeat thread
+        #: (``EDL_TELEMETRY_INTERVAL``); <= 0 ships none
+        self.telemetry_interval: float = 5.0
+        self._last_telemetry_report = 0.0
+        self._telemetry_seq = 0
+        self._events_sent_seq = 0
+        #: serializes reports (the heartbeat thread's and a flush from
+        #: the step thread): seq order must be snapshot order
+        self._report_lock = threading.Lock()
+        #: per-process nonce: tells the aggregator a restarted trainer
+        #: (fresh seq stream) from a stale replay of the old one's
+        self._telemetry_boot = uuid.uuid4().hex
         #: steps below this replay work already completed before a
         #: non-graceful fallback (the ledger's "replaying" bound)
         self._replay_until = 0
@@ -670,15 +690,70 @@ class ElasticTrainer:
         self._last_heartbeat = now
         self._beat_once()
 
+    def _maybe_report_telemetry(self) -> None:
+        """Throttled telemetry report.  Runs only on the heartbeat
+        thread: a POST between a member's plan poll and its next step
+        dispatch would skew the members' resize-barrier entry."""
+        if self.telemetry_interval <= 0:
+            return
+        now = time.monotonic()
+        if now - self._last_telemetry_report < self.telemetry_interval:
+            return
+        self._last_telemetry_report = now
+        self._report_telemetry()
+
+    def flush_telemetry(self) -> None:
+        """Ship one report now, outside the cadence: the end of a run,
+        so the coordinator's merged view holds the final counts before
+        the job reports completion."""
+        if self.telemetry_interval > 0:
+            self._report_telemetry()
+
+    def _report_telemetry(self) -> None:
+        """Ship this process's cumulative registry snapshot and the
+        flight-recorder events not shipped yet (oldest first, at most 64
+        a report).  Cumulative and sequenced, so idempotent at the
+        aggregator; best effort — telemetry never stalls a step."""
+        rep = getattr(self.coordinator, "report_telemetry", None)
+        if rep is None:
+            return  # test doubles without telemetry
+        source = self.heartbeat_ids[0] if self.heartbeat_ids else "local"
+        with self._report_lock:
+            events = self.recorder.events_since(self._events_sent_seq)[:64]
+            self._telemetry_seq += 1
+            try:
+                rep(
+                    source,
+                    snapshot=self.telemetry.snapshot(),
+                    seq=self._telemetry_seq,
+                    events=[e.to_dict() for e in events],
+                    boot=self._telemetry_boot,
+                )
+            except Exception:
+                return  # unreachable coordinator: the next cadence retries
+            if events:
+                self._events_sent_seq = events[-1].seq
+        self._m_reports.inc()
+
     def _ensure_heartbeat_thread(self):
         if self._hb_thread is not None and self._hb_thread.is_alive():
             return
         self._hb_stop = threading.Event()
+        # Wake often enough for both cadences; beat on the heartbeat's.
+        wake = self.HEARTBEAT_INTERVAL
+        if self.telemetry_interval > 0:
+            wake = min(wake, self.telemetry_interval)
 
         def loop():
-            while not self._hb_stop.wait(max(self.HEARTBEAT_INTERVAL, 0.05)):
-                if self.heartbeat_ids:
+            last_beat = time.monotonic()
+            while not self._hb_stop.wait(max(wake, 0.05)):
+                if not self.heartbeat_ids:
+                    continue
+                now = time.monotonic()
+                if now - last_beat >= self.HEARTBEAT_INTERVAL - 1e-3:
+                    last_beat = now
                     self._beat_once()
+                self._maybe_report_telemetry()
 
         self._hb_thread = threading.Thread(target=loop, daemon=True, name="edl-heartbeat")
         self._hb_thread.start()

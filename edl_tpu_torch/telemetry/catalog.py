@@ -490,7 +490,8 @@ CATALOG = {
     # -- telemetry reports, spans, the flight recorder's spill ----------------
     "edl_telemetry_reports_total": {
         "type": "counter",
-        "help": "Telemetry snapshots shipped to the coordinator.",
+        "help": "Telemetry snapshots shipped to the coordinator (by "
+        "trainers and serving replicas).",
         "labels": (),
     },
     "edl_span_seconds": {
@@ -498,6 +499,30 @@ CATALOG = {
         "help": "Named span durations; span names match the utils.profiling "
         "trace annotations so traces and metrics correlate by name.",
         "labels": ("span",),
+    },
+    # -- the autoscaler's control loop (autoscaler.scaler) --------------------
+    "edl_autoscaler_ticks_total": {
+        "type": "counter",
+        "help": "Autoscaler decision cycles (run_once with jobs).",
+        "labels": (),
+    },
+    "edl_autoscaler_actuations_total": {
+        "type": "counter",
+        "help": "Autoscaler actuations applied, by direction.",
+        "labels": ("direction",),
+    },
+    "edl_observed_step_rate": {
+        "type": "gauge",
+        "help": "Observed cluster step rate (steps/s) from merged "
+        "trainer telemetry — the goodput signal the autoscaler logs "
+        "into its decision trace.",
+        "labels": ("job",),
+    },
+    "edl_observed_resize_cost_seconds": {
+        "type": "gauge",
+        "help": "Mean observed resize cost (seconds) from merged "
+        "trainer telemetry.",
+        "labels": ("job",),
     },
     # -- the coordinator snapshot as gauges (its /metrics) --------------------
     "edl_generation": {

@@ -48,15 +48,54 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "from edl_tpu_torch.serving.router import RequestRouter, RouterServer, main\n"
         "from edl_tpu_torch.serving.client import RetryingClient, RetryBudgetExhausted\n"
         "from edl_tpu_torch.telemetry import FlightRecorder, TelemetryAggregator, get_recorder\n"
+        "for n in CONTROL_PLANE:\n"
+        "    assert n in names, n\n"
+        "from edl_tpu_torch.resource import TrainingJob, GPU_RESOURCE_KEY\n"
+        "from edl_tpu_torch.cluster import Cluster, FakeKube, KubectlAPI, NodeInfo\n"
+        "from edl_tpu_torch.autoscaler import Autoscaler, scale_all_jobs_dry_run\n"
+        "from edl_tpu_torch.controller import Controller, JobParser, pod_env\n"
+        "from edl_tpu_torch.cli import build_parser, main\n"
         "print(len(names))\n"
     )
+    code = f"CONTROL_PLANE = {CONTROL_PLANE!r}\n" + code
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=str(ROOT), env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 21
+    assert int(r.stdout.strip().splitlines()[-1]) >= 21 + len(CONTROL_PLANE)
+
+
+#: the control plane's modules (resource, cluster, autoscaler,
+#: controller, the CLI)
+CONTROL_PLANE = (
+    "edl_tpu_torch.utils.quantity", "edl_tpu_torch.resource.training_job",
+    "edl_tpu_torch.cluster.gpu_topology", "edl_tpu_torch.cluster.resources",
+    "edl_tpu_torch.cluster.kube", "edl_tpu_torch.cluster.cluster",
+    "edl_tpu_torch.cluster.fake_kubectl", "edl_tpu_torch.autoscaler.algorithm",
+    "edl_tpu_torch.autoscaler.scaler", "edl_tpu_torch.controller.coordclient",
+    "edl_tpu_torch.controller.jobparser", "edl_tpu_torch.controller.lifecycle",
+    "edl_tpu_torch.controller.watch", "edl_tpu_torch.controller.controller",
+    "edl_tpu_torch.controller.deploy", "edl_tpu_torch.cli",
+)
+
+
+def test_kubectl_stand_in_and_job_model_import_without_torch():
+    """The kubectl stand-in runs once per kubectl call: it and the job
+    model import neither torch nor JAX."""
+    code = (
+        "import sys\n"
+        "for name in ('torch', 'jax', 'jaxlib', 'flax', 'optax', 'edl_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import edl_tpu_torch.cluster.fake_kubectl, edl_tpu_torch.controller.jobparser\n"
+        "import edl_tpu_torch.autoscaler.algorithm\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
 def test_coordinator_metrics_is_prometheus_text_and_json_on_request():
