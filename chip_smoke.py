@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port's serving and training paths, its elastic runtime,
-its serving fleet and its control plane on the card and exits non-zero
-on the first failure.  Phases, in order:
+its serving fleet, its control plane and its fleet market on the card
+and exits non-zero on the first failure.  Phases, in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -159,10 +159,44 @@ on the first failure.  Phases, in order:
     ``Autoscaler.run_once`` over 64 nodes x 8 GPUs, read as
     ``KubectlAPI`` reads a cluster's nodes, with 32 elastic jobs of
     h100-1/8/16.
-11. **Kernels line** — one JSON object listing every ported kernel with
+11. **Fleet market** — four GPUs in a FakeKube: ``gpu-0`` (this
+    machine) and three simulated 1-GPU nodes.  A ``Controller`` holds two
+    prioritized jobs, so ``_maybe_attach_fleet`` rides the GPU market's
+    arbiter on its ``Autoscaler``: ``hi`` (priority 10, min = max = 1,
+    the launcher pod on the card at full width, as phase 10 starts it)
+    and ``lo`` (priority 1, sizes 1 and 2: two launcher pods in a gloo
+    world on the CPU at the tiny size, since a world of two needs two
+    NCCL ranks and this machine has one card).  The serving fleet
+    ``api`` (replica A by ``serve_run`` from a spilled step-4 checkpoint,
+    full width, monolithic prefill, behind ``route_run``; its own
+    coordinator and a ``ServingLane`` with a 0.5 s TTFT bound) bids with
+    priority 100.  Calm (2 ticks of ``Controller.run_once``, as ``cli
+    controller`` ticks, 0.5 s apart) changes nothing; 24 concurrent streams of 1024-1900-token
+    prompts (32 new tokens) make the lane ask for 2 replicas: the
+    arbiter preempts ``lo`` 2 -> 1 (both members stop at one agreed
+    step, the world acks, and ``lo``'s workload shrinks to 1) before
+    ``api``'s retarget; the controller's own tick keeps ``lo``'s target
+    and workload at 1 through the spike; the glue starts
+    replica B on the card from the checkpoint's DRAM copy; once the
+    traffic ends, ``api`` sheds B after
+    its hold ticks, migrating a live 256-token generation to A
+    (bit-identical to the unmigrated run; the router steered first, no
+    503), and ``lo`` grows back to 2.  Holdings {api 2, hi 1, lo 1} in
+    the spike, {api 1, hi 1, lo 2} at the end, four transitions under
+    four trace ids, ``hi`` in one generation at world 1 with its first
+    12 losses bit-identical to ``launcher.run``, 12 ``flash_fwd`` a
+    prefill on A and B, the tokens of both against the full recompute,
+    and A's swap and a planted retry in the serving coordinator's merged
+    ``/telemetry``; up to 8 spike streams of each replica, spread over
+    its admissions, are held to the full recompute.  Prints the arbiter
+    and controller tick ms, spike to B's first
+    token, ``lo``'s decision to its world ack, the shed's drain and
+    migrated blocks, TTFT p50/p95 before, during and after, GPUs over
+    time, and the peak memory.
+12. **Kernels line** — one JSON object listing every ported kernel with
     its launches on the main path, error, times, bound, the shape timed,
     the achieved TFLOP/s and the share of the bound.
-12. **Last line** — ``{"ok": true, "device": {...}}``.
+13. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -2108,7 +2142,8 @@ def phase_serving_replica(card: str):
         out["swap"] = {"recompute": _recompute_check(engine, [prompts[0]], [after[0]["tokens"]]),
                        "hot_swaps": engine._m_swaps.value(),
                        "rejected": engine._m_swap_rejected.value(),
-                       "events": list(engine.swap_events)}
+                       "events": [e.to_dict() for e in engine.recorder.events()
+                                  if e.kind.startswith("serve.swap")]}
 
         # 6. drain with two requests in flight
         inflight = {}
@@ -3066,6 +3101,744 @@ def phase_control_plane(card: str):
     return out
 
 
+# -- phase 11 -------------------------------------------------------------
+
+#: the fleet market's trainer pod: CP_POD, and after a SIGUSR2 the same
+#: dump at the next step boundary, where every dispatched step's
+#: launches are counted (a pod stopped by SIGTERM leaves through
+#: ``os._exit``, past atexit)
+FM_POD = CP_POD.replace("atexit.register(dump)\n", r"""atexit.register(dump)
+from edl_tpu_torch.runtime import elastic
+asked = []
+signal.signal(signal.SIGUSR2, lambda *a: asked.append(1))
+real_maybe_resize = elastic.ElasticTrainer.maybe_resize
+
+def maybe_resize(self):
+    if asked:
+        asked.clear()
+        dump()
+    return real_maybe_resize(self)
+
+elastic.ElasticTrainer.maybe_resize = maybe_resize
+""")
+#: ``hi``'s pod arguments beside its env (the card, full width), and
+#: ``lo``'s: two members of a gloo world on the CPU at the tiny size
+FM_HI_ARGS = ()
+FM_LO_ARGS = ("--device", "cpu", "--tiny")
+#: the serving replicas' model and device (None: the full-width one)
+FM_MODEL_KWARGS = None
+FM_DEVICE = "cuda"
+#: controller ticks (Controller.run_once) and the bound on every wait
+FM_TICK_S = 0.5
+FM_CALM_TICKS = 2
+FM_WAIT_S = 120
+#: the spike: concurrent streams through the router, prompt lengths,
+#: new tokens; the generation running when the lane sheds; the TTFT
+#: probes before and after the spike, one at a time
+FM_SPIKE_STREAMS = 24
+FM_SPIKE_MAX = 600
+FM_SPIKE_PROMPTS = (1024, 1900)
+FM_SPIKE_NEW = 32
+FM_LONG_PROMPT = 1024
+FM_LONG_NEW = 256
+FM_PROBES = 4
+FM_RECOMPUTE = 8  # spike streams held to a full recompute, per replica
+FM_PROBE_PROMPT = 1024
+#: the serving lane's thresholds (queue_high is the lane's default, 8)
+FM_TTFT_HIGH_S = 0.5
+FM_HOLD_TICKS = 2
+#: hi's first steps held bit for bit against launcher.run
+FM_HI_REF_STEPS = 12
+#: the trainers' checkpoint interval: a full-width host checkpoint (its
+#: copy and crc) every 4 steps would load the host the replicas share
+FM_CKPT_INTERVAL = 200
+
+
+def _fm_job_yaml(name, mn, mx, port, priority):
+    """A prioritized GPU TrainingJob: ``_cp_job_yaml``'s configuration
+    (transformer_lm on h100-1, global batch 8) with ``spec.priority``
+    and a checkpoint every FM_CKPT_INTERVAL steps."""
+    return _cp_job_yaml(name, mn, mx, port).replace(
+        "spec:\n", f"spec:\n  priority: {priority}\n", 1).replace(
+        f"checkpoint_interval_steps: {ELASTIC_INTERVAL}",
+        f"checkpoint_interval_steps: {FM_CKPT_INTERVAL}")
+
+
+def _pod_env(job, pod_name, coord_port, **extra):
+    """The env the job parser renders for ``job``'s trainer pod, with the
+    downward API's values and the coordinator's address substituted."""
+    import os
+
+    from edl_tpu_torch.controller.jobparser import parse_to_trainer_manifests
+
+    rendered = parse_to_trainer_manifests(job)[0]["spec"]["template"]["spec"]["containers"][0]
+    if rendered["command"] != ["python", "-m", "edl_tpu_torch.launcher"]:
+        fail(f"{job.name}'s pod command is {rendered['command']}")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    for e in rendered["env"]:
+        env[e["name"]] = e.get("value", "")
+    env.update(EDL_POD_NAME=pod_name, EDL_POD_IP="127.0.0.1",
+               EDL_COORDINATOR_ADDR=f"127.0.0.1:{coord_port}", **extra)
+    return env
+
+
+def _quantiles(xs):
+    return ([float(np.percentile(xs, 50)), float(np.percentile(xs, 95))] if xs else None)
+
+
+def phase_fleet_market(card: str):
+    """Phase 11 (``_fleet_market``) with a fresh registry and flight
+    recorder: the serving lane's first read of a TTFT series is its
+    whole cumulative histogram, which in this process also holds the
+    earlier phases' requests."""
+    from edl_tpu_torch import telemetry
+
+    with telemetry.scoped():
+        return _fleet_market(card)
+
+
+def _fleet_market(card: str):
+    """The fleet market moves a serving spike's GPU between the port's
+    trainers and replicas.  A ``Controller`` over a FakeKube of this
+    machine (gpu-0) and three simulated 1-GPU nodes holds two prioritized
+    jobs, so ``_maybe_attach_fleet`` builds the arbiter: ``hi`` (priority
+    10, min = max = 1, full width on the card) and ``lo`` (priority 1,
+    sizes 1 and 2, two launcher processes in a gloo world on the CPU at
+    the tiny size).  The serving fleet ``api`` (replica A by
+    ``serve_run`` from a HostDRAMStore spill, behind ``route_run``; its
+    own coordinator and ``ServingLane``) bids with priority 100: 4 GPUs,
+    2 + 1 + 1, calm is full.  A spike of streamed requests takes ``lo``'s
+    second GPU for replica B (loading the checkpoint's DRAM copy); when
+    it clears, ``api`` sheds B, migrating a live generation to A, and
+    ``lo`` grows back."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch import cli, launcher, telemetry
+    from edl_tpu_torch.autoscaler import serving as serving_lane
+    from edl_tpu_torch.autoscaler.scaler import Autoscaler
+    from edl_tpu_torch.autoscaler.serving import ServingLane
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.kube import FakeKube, NodeInfo
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.fleet import ServingBidder
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.resource.training_job import TrainingJob
+    from edl_tpu_torch.runtime import ShardedDataIterator, Trainer, synthetic_dataset
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer, HTTPCoordinator
+    from edl_tpu_torch.runtime.coordinator import LocalCoordinator
+    from edl_tpu_torch.serving import DecodeEngine
+    from edl_tpu_torch.serving.router import route_run
+    from edl_tpu_torch.serving.server import serve_run
+
+    model = get_model("transformer_lm", **(FM_MODEL_KWARGS or {}))
+    spec = model.decode
+    vocab, layers = spec.vocab_size, spec.layers
+    block_bytes = (2 * layers * 16 * spec.heads * spec.head_dim
+                   * torch.empty((), dtype=spec.cache_dtype).element_size())
+    hi_layers = get_model("transformer_lm", **(CP_MODEL_KWARGS or {})).decode.layers
+    hi_want = {"flash_fwd": hi_layers, "flash_bwd": hi_layers, "flash_bwd_streamk": 0,
+               "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    t_phase = time.perf_counter()
+    out = {"card": card, "parts_s": {}, "tick_s": FM_TICK_S}
+    tmp = tempfile.mkdtemp(prefix="edl-fm-")
+    servers, procs, pod_logs, reps, router = {}, {}, {}, {}, None
+    old_template = os.environ.get("EDL_COORD_ADDR_TEMPLATE")
+    real_post_drain = serving_lane.post_drain
+    rng = np.random.RandomState(SEED + 11)
+    try:
+        # -- setup 1: the control plane and the trainer pods (they start
+        # while the checkpoint and the serving fleet are made) ------------
+        t_trainers = time.perf_counter()
+        for name, mx, legal in (("lo", 2, [1, 2]), ("hi", 1, [1])):
+            servers[name] = CoordinatorServer(
+                LocalCoordinator(target_world=mx, max_world=mx, heartbeat_timeout=60,
+                                 legal_sizes=legal),
+                host="127.0.0.1", port=0).start()
+        lo_coord, hi_coord = servers["lo"].coordinator, servers["hi"].coordinator
+        os.environ["EDL_COORD_ADDR_TEMPLATE"] = "127.0.0.1:{port}"
+        kube = FakeKube([_host_node("gpu-0", torch.cuda.device_count())]
+                        + [NodeInfo(name=f"gpu-{i}", cpu_milli=8000, memory_mega=65536, gpus=1)
+                           for i in (1, 2, 3)])
+        cluster = Cluster(kube)
+        ctrl = Controller(cluster, Autoscaler(cluster))
+        jobs = {"hi": ctrl.on_add(TrainingJob.from_yaml(
+                    _fm_job_yaml("hi", 1, 1, servers["hi"].port, 10))),
+                "lo": ctrl.on_add(TrainingJob.from_yaml(
+                    _fm_job_yaml("lo", 1, 2, servers["lo"].port, 1)))}
+        cluster.update_parallelism(jobs["lo"], 2)  # lo's world forms at 2
+        pods = {n: sorted(p.name for p in kube.list_pods() if p.job_name == n) for n in jobs}
+        placement = {p.name: p.node for p in kube.list_pods()}
+        if len(pods["hi"]) != 1 or len(pods["lo"]) != 2 or placement[pods["hi"][0]] != "gpu-0":
+            fail(f"fleet market: pods {pods} placed {placement}")
+        out["nodes"] = {
+            "gpu-0": "this machine: hi's pod, and the serving replicas A and B",
+            "gpu-1..3": "simulated 1-GPU nodes; lo's two pods are placed there",
+            "bypasses": "lo's two members are launcher processes in a gloo world on the CPU "
+                        "at the tiny size (--device cpu --tiny): a world of two members needs "
+                        "two NCCL ranks and this machine has one card",
+            "placement": placement}
+        log({"fleet_market_nodes": out["nodes"]})
+        hist = {pod: f"{tmp}/{pod}.jsonl" for pod in pods["hi"] + pods["lo"]}
+        hi_pod = pods["hi"][0]
+        hi_out = f"{tmp}/hi-pod.json"
+        env = _pod_env(jobs["hi"], hi_pod, servers["hi"].port,
+                       EDL_TELEMETRY_INTERVAL=str(CP_TELEMETRY_S))
+        procs[hi_pod] = subprocess.Popen(
+            [sys.executable, "-c", FM_POD, hi_out, "--steps", "1000000",
+             "--history-file", hist[hi_pod], *FM_HI_ARGS],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pod in pods["lo"]:
+            env = _pod_env(jobs["lo"], pod, servers["lo"].port,
+                           EDL_POD_ADDRESS=f"127.0.0.1:{_free_port()}",
+                           EDL_TELEMETRY_INTERVAL="0.5", OMP_NUM_THREADS="1",
+                           CUDA_VISIBLE_DEVICES="")
+            procs[pod] = subprocess.Popen(
+                [sys.executable, "-c", FM_POD, f"{tmp}/{pod}.json", "--steps", "1000000",
+                 "--history-file", hist[pod], *FM_LO_ARGS],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pod, p in procs.items():
+            pod_logs[pod] = []
+            threading.Thread(target=lambda p=p, log_to=pod_logs[pod]: log_to.extend(p.stdout),
+                             daemon=True).start()
+
+        def steps_at(pod, world):
+            return [x["step"] for x in _cp_history(hist[pod])
+                    if "step" in x and x["world_size"] == world]
+
+        def wait_for(pred, what):
+            deadline = time.monotonic() + FM_WAIT_S
+            while not pred():
+                for pod, p in procs.items():
+                    if p.poll() is not None:
+                        tail = b"".join(pod_logs[pod]).decode(errors="replace")[-4000:]
+                        fail(f"fleet market: pod {pod} exited {p.returncode} waiting for "
+                             f"{what}; its log ends:\n{tail}")
+                if time.monotonic() > deadline:
+                    fail(f"fleet market: no {what} within {FM_WAIT_S} s")
+                time.sleep(0.05)
+
+        # -- setup 2: a step-4 checkpoint of the training configuration,
+        # spilled (A loads the spill) and kept in DRAM (B loads it there)
+        t_ckpt = time.perf_counter()
+        trainer = Trainer(model, lr=TRAIN_LR, device=FM_DEVICE, seed=SEED)
+        it = ShardedDataIterator(
+            synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH,
+            seed=SEED)
+        store = HostDRAMStore(spill_dir=f"{tmp}/spill")
+        state = trainer.init_state()
+        while state.step < 4:
+            state, _ = trainer.step(state, it.device_batch(state.step, FM_DEVICE))
+        store.save_async(state)
+        store.wait()
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["parts_s"]["checkpoint"] = time.perf_counter() - t_ckpt
+
+        # -- setup 3: the serving fleet: coordinator, replica A, router ---
+        t_part = time.perf_counter()
+        servers["api"] = CoordinatorServer(LocalCoordinator(target_world=1, max_world=2),
+                                           host="127.0.0.1", port=0).start()
+        serve_coord = servers["api"].coordinator
+        serve_addr = f"127.0.0.1:{servers['api'].port}"
+        old_tel = os.environ.get("EDL_TELEMETRY_INTERVAL")
+        os.environ["EDL_TELEMETRY_INTERVAL"] = "0.2"
+        try:
+            port_a = _free_port()
+            reps["api-a"] = serve_run("transformer_lm", coordinator_addr=serve_addr,
+                                      checkpoint_dir=f"{tmp}/spill", port=port_a,
+                                      pod_address=f"127.0.0.1:{port_a}", replica_id="api-a",
+                                      device=FM_DEVICE, host="127.0.0.1",
+                                      **(FM_MODEL_KWARGS or {}))
+        finally:
+            if old_tel is None:
+                os.environ.pop("EDL_TELEMETRY_INTERVAL", None)
+            else:
+                os.environ["EDL_TELEMETRY_INTERVAL"] = old_tel
+        with reps["api-a"].gen_batcher.frozen():
+            reps["api-a"].gen_batcher.chunked_prefill = False  # every prefill runs B1
+        # C-4: a transient fault on A's coordinator client is retried and
+        # journaled; A's next report carries it and A's load (serve.swap)
+        # into the serving coordinator's merged /telemetry
+        client = reps["api-a"].coordinator
+        real_open, faults = client._open, [urllib.error.URLError("planted: connection reset")]
+
+        def flaky_open(req):
+            if faults:
+                raise faults.pop()
+            return real_open(req)
+
+        client._open = flaky_open
+        deadline = time.monotonic() + FM_WAIT_S
+        while True:
+            evs = HTTPCoordinator(serve_addr).telemetry()["events"]
+            swap = [e for e in evs if e["kind"] == "serve.swap"
+                    and e["data"].get("origin") == "api-a"]
+            retry = [e for e in evs if e["kind"] == "retry"
+                     and e["data"].get("op") == "coordinator request"]
+            if swap and retry:
+                break
+            if time.monotonic() > deadline:
+                fail(f"fleet market: the serving coordinator's /telemetry has swap events "
+                     f"{swap} and retry events {retry} (want both, from api-a's reports)")
+            time.sleep(0.05)
+        client.__dict__.pop("_open", None)
+        out["c4_events"] = {"serve.swap": swap[0]["data"], "retry": retry[0]["data"]}
+        router = route_run(serve_addr, port=_free_port(), host="127.0.0.1", probe_interval_s=0.1)
+        rbase = f"http://127.0.0.1:{router.port}"
+        _wait_route(rbase, "api-a")
+        admitted = []
+        _record_admissions(reps["api-a"], admitted)
+        out["parts_s"]["serving_start"] = time.perf_counter() - t_part
+
+        # the generation that will be running when the lane sheds: first
+        # unmigrated, alone on A
+        long_prompt = rng.randint(3, vocab, size=FM_LONG_PROMPT)
+        long_ref, _ = reps["api-a"].gen_batcher.submit_generate(
+            {"tokens": long_prompt.tolist()}, max_new_tokens=FM_LONG_NEW,
+            deadline_s=600.0).result(timeout=600)
+
+        wait_for(lambda: all(len(steps_at(p, 2)) >= 3 for p in pods["lo"]), "lo stepping at 2")
+        wait_for(lambda: len(steps_at(hi_pod, 1)) >= 3, "hi stepping")
+        out["parts_s"]["trainers_start_to_stepping"] = time.perf_counter() - t_trainers
+        hi_gen0 = hi_coord.generation()
+
+        # -- the market: the controller attaches it, api joins it ----------
+        ctrl.run_once()  # two live prioritized jobs: _maybe_attach_fleet builds the arbiter
+        arbiter = ctrl.autoscaler.fleet_arbiter
+        if arbiter is None or sorted(b.name for b in arbiter.trainers) != ["hi", "lo"]:
+            fail(f"fleet market: the controller attached {arbiter}")
+        if sorted(ctrl._fleet_managed) != ["hi", "lo"] or ctrl.autoscaler.jobs:
+            fail(f"fleet market: market jobs {ctrl._fleet_managed}, single lane "
+                 f"{list(ctrl.autoscaler.jobs)}")
+        lo_bidder = next(b for b in arbiter.trainers if b.name == "lo")
+        stamps = {}
+        real_actuate, real_wait = lo_bidder.actuate, lo_bidder.wait_drain
+
+        def lo_actuate(units, trace_id):
+            stamps.setdefault("lo_decision", []).append(time.perf_counter())
+            return real_actuate(units, trace_id)
+
+        def lo_wait(timeout):
+            ok = real_wait(timeout)
+            stamps.setdefault("lo_ack", []).append((ok, time.perf_counter()))
+            return ok
+
+        lo_bidder.actuate, lo_bidder.wait_drain = lo_actuate, lo_wait
+        # what lo's coordinator showed when api's retargets landed
+        real_serve_target = serve_coord.set_target_world
+
+        def serve_target(n, trace_id=""):
+            stamps.setdefault("api_target", []).append((n, lo_coord.metrics()))
+            return real_serve_target(n, trace_id=trace_id)
+
+        serve_coord.set_target_world = serve_target
+        drains = []
+
+        def post_drain(address, budget_s, **kw):
+            t = time.perf_counter()
+            ack = real_post_drain(address, budget_s, **kw)
+            drains.append({"address": address, "s": time.perf_counter() - t, "ack": ack, **kw})
+            return ack
+
+        serving_lane.post_drain = post_drain
+        b_state = {}
+
+        def start_b():
+            try:
+                t = time.perf_counter()
+                eng = DecodeEngine(model, device=FM_DEVICE, max_seqs=8, block_tokens=16,
+                                   store=store)
+                rep = _fleet_replica(eng, serve_addr, "api-b", chunked=False)
+                _record_admissions(rep, admitted)
+                reps["api-b"] = rep
+                b_state["started_s"] = time.perf_counter() - t
+            except Exception as e:  # failed on by the main thread
+                b_state["error"] = repr(e)
+
+        def on_scale(old, new):
+            # the kube glue: a replica more starts on the card (it warms
+            # before it registers), a replica less was drained already
+            if new > old:
+                threading.Thread(target=start_b, daemon=True).start()
+            else:
+                # B is drained and deregistered; it stops once the
+                # stream it relays from A has ended (below)
+                b_state["shed_at"] = time.perf_counter()
+
+        lane = ServingLane(HTTPCoordinator(serve_addr), min_replicas=1, max_replicas=2,
+                           router=f"127.0.0.1:{router.port}", ttft_high_s=FM_TTFT_HIGH_S,
+                           hold_ticks=FM_HOLD_TICKS, on_scale=on_scale)
+        arbiter.add_fleet(ServingBidder("api", lane, priority=100))
+        records, timeline, tick_ms, arbiter_ms = [], [], [], []
+        real_run = arbiter.run_once
+
+        def run_once():
+            t0 = time.perf_counter()
+            records.append(real_run())
+            arbiter_ms.append((time.perf_counter() - t0) * 1e3)
+            return records[-1]
+
+        arbiter.run_once = run_once  # attach_fleet's tick calls it by name
+
+        def tick(phase):
+            """One ``Controller.run_once``, as ``cli controller`` ticks
+            (the market rides its autoscaler tick): the tick's holdings,
+            free GPUs and per-job decision entries, and what lo's
+            coordinator and trainer workload show after the whole tick."""
+            n = len(records)
+            t0 = time.perf_counter()
+            ctrl.run_once()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            rec = records[n] if len(records) > n else None
+            if rec is None:
+                fail(f"fleet market: the {phase} tick saw no bidder")
+            timeline.append({"t_s": time.perf_counter() - t_phase, "phase": phase,
+                             "holdings": dict(rec["inventory"]["holdings"]),
+                             "free": rec["free_chips"],
+                             "decisions": {d["job"]: d for d in rec["decisions"]},
+                             "lo_after_tick": (lo_coord.target_world(),
+                                               kube.get_workload("lo-trainer").parallelism)})
+            return timeline[-1]
+
+        def probes(what):
+            res = [_stream(rbase, rng.randint(3, vocab, size=FM_PROBE_PROMPT), FM_SPIKE_NEW)
+                   for _ in range(FM_PROBES)]
+            for r in res:
+                _stream_ok(r, FM_SPIKE_NEW, f"fleet market: a probe {what} the spike")
+            return [r["ttft_ms"] for r in res]
+
+        # -- 1. calm ------------------------------------------------------
+        ttft_before = probes("before")
+        for _ in range(FM_CALM_TICKS):
+            tick("calm")
+            time.sleep(FM_TICK_S)
+
+        # -- 2. spike: 24 streams at once, each replaced when it ends -----
+        t_part = time.perf_counter()
+        stop_spike = threading.Event()
+        spike, lock = [], threading.Lock()
+        prompts = iter([rng.randint(3, vocab, size=int(n)) for n in rng.randint(
+            FM_SPIKE_PROMPTS[0], FM_SPIKE_PROMPTS[1] + 1, size=FM_SPIKE_MAX)])
+
+        def streamer():
+            while not stop_spike.is_set():
+                with lock:
+                    p = next(prompts, None)
+                if p is None:
+                    return
+                spike.append((p, _stream(rbase, p, FM_SPIKE_NEW)))
+
+        retries0 = telemetry.get_registry().counter("edl_route_retries_total").value(
+            reason="draining")
+        t_spike = time.perf_counter()
+        workers = [threading.Thread(target=streamer) for _ in range(FM_SPIKE_STREAMS)]
+        for w in workers:
+            w.start()
+        window = {}
+
+        def freeze_read():
+            """Launches and the two batchers' prefill counts, with both
+            workers parked at a token boundary (no prefill half done)."""
+            gens = [reps[r].gen_batcher for r in ("api-a", "api-b")]
+            with gens[0].frozen(), gens[1].frozen():
+                return _all_launches(), [g.stats["prefills"] for g in gens]
+
+        deadline = time.monotonic() + FM_WAIT_S
+        while True:
+            if time.monotonic() > deadline:
+                fail(f"fleet market: the spike never got api to 2 replicas serving from B "
+                     f"(timeline {[(x['phase'], x['holdings']) for x in timeline]}, B {b_state})")
+            if "error" in b_state:
+                fail(f"fleet market: replica B failed to start: {b_state['error']}")
+            row = tick("spike")
+            if row["holdings"].get("api") != 2:
+                row["phase"] = "spike-wait"  # the lane has not seen the queue yet
+            if "api-b" in reps and reps["api-b"].engine.warmed and "launches" not in window:
+                _wait_route(rbase, "api-b")
+                window["launches"], window["prefills"] = freeze_read()
+                # B may have taken (and prefilled) its first streams before
+                # the window opened: count only what it admits after it
+                window["admitted"] = len(admitted)
+            on_b = sum(1 for a in admitted[window.get("admitted", len(admitted)):]
+                       if a[0] == "api-b")
+            if on_b >= 2 and sum(1 for x in timeline if x["phase"] == "spike") >= 3:
+                break
+            time.sleep(FM_TICK_S)
+        stop_spike.set()
+        for w in workers:
+            w.join(timeout=FM_WAIT_S)
+        launches, prefills = freeze_read()
+        t_traffic_end = time.perf_counter()
+        # lo's survivor and each member's last world-2 step
+        survivor = list(lo_coord.plan().members)
+        if len(survivor) != 1:
+            fail(f"fleet market: lo's plan in the spike has members {survivor}")
+        survivor = survivor[0]
+        wait_for(lambda: any(s > max(steps_at(survivor, 2)) for s in steps_at(survivor, 1)),
+                 "lo's survivor stepping at 1")
+        stop = {p: max(steps_at(p, 2)) for p in pods["lo"]}
+        # served tokens on both replicas against the full recompute
+        where = {}
+        for rid, n, head, tail in admitted:
+            where.setdefault((n, head, tail), rid)
+        served = {"api-a": [], "api-b": []}
+        for p, r in spike:
+            _stream_ok(r, FM_SPIKE_NEW, "fleet market: a spike stream")
+            rid = where.get((len(p), tuple(p[:4]), tuple(p[-4:])))
+            if rid in served:
+                served[rid].append((p, r))
+        if not served["api-b"] or not served["api-a"]:
+            fail(f"fleet market: spike streams served by A {len(served['api-a'])}, "
+                 f"B {len(served['api-b'])}")
+        # up to FM_RECOMPUTE streams of each replica, spread over the
+        # order in which that replica admitted them
+        order = {tuple(a[1:]): i for i, a in reversed(list(enumerate(admitted)))}
+        rc = {}
+        for rid in served:
+            by_time = sorted(served[rid], key=lambda pr: order[
+                (len(pr[0]), tuple(pr[0][:4]), tuple(pr[0][-4:]))])
+            at = np.unique(np.linspace(0, len(by_time) - 1, FM_RECOMPUTE).round().astype(int))
+            picks = [by_time[i] for i in at]
+            rc[rid] = _recompute_check(reps[rid].engine, [p for p, _ in picks],
+                                       [r["tokens"] for _, r in picks])
+            rc[rid]["streams"] = len(picks)
+        out["parts_s"]["spike"] = time.perf_counter() - t_part
+
+        # -- 3. clear: the lane sheds B once idle, migrating a live
+        # generation to A; lo grows back ----------------------------------
+        t_part = time.perf_counter()
+        long_res, long_started = {}, threading.Event()
+        long_thread = None
+        deadline = time.monotonic() + FM_WAIT_S
+        while True:
+            if time.monotonic() > deadline:
+                fail(f"fleet market: api never shed B "
+                     f"({[(x['phase'], x['holdings']) for x in timeline[-6:]]})")
+            row = tick("clear")
+            reason = row["decisions"]["api"]["observed"].get("slo_reason", "")
+            if serve_coord.target_world() == 1:
+                break
+            if long_thread is None and reason.startswith("idle tick"):
+                # one idle tick seen: the next sheds.  The long
+                # generation goes to B now, and is running then.
+                b_base = f"http://{reps['api-b'].address}"
+                long_thread = threading.Thread(target=lambda: long_res.update(_stream(
+                    b_base, long_prompt, FM_LONG_NEW,
+                    on_token=lambda n: n == 8 and long_started.set())))
+                long_thread.start()
+                if not long_started.wait(FM_WAIT_S):
+                    fail(f"fleet market: the long generation never started on B: {long_res}")
+            time.sleep(FM_TICK_S)
+        shed_row = row
+        mark = len(_cp_history(hist[survivor]))
+        wait_for(lambda: any(x.get("world_size") == 2
+                             for x in _cp_history(hist[survivor])[mark:]),
+                 "lo stepping at 2 again")
+        lo_plan = lo_coord.plan()  # the world the restore formed
+        tick("restored")
+        if long_thread is None:
+            fail("fleet market: the lane shed before the long generation started")
+        long_thread.join(timeout=FM_WAIT_S)
+        reps["api-b"].stop()
+        out["parts_s"]["clear"] = time.perf_counter() - t_part
+        ttft_after = probes("after")
+        hi_stable = hi_coord.generation() == hi_gen0
+        retries = telemetry.get_registry().counter("edl_route_retries_total").value(
+            reason="draining") - retries0
+
+        # the fleet command over the three coordinators, the pods still up
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            if cli.main(["fleet", "--job", f"lo=127.0.0.1:{servers['lo'].port},priority=1",
+                         "--job", f"hi=127.0.0.1:{servers['hi'].port},priority=10",
+                         "--serve", f"api={serve_addr},priority=100", "--chips", "4", "--json"]) != 0:
+                fail("fleet market: the fleet command failed")
+        fleet_cmd = json.loads(text.getvalue())
+
+        # -- stop the pods (hi dumps its launch counts first) --------------
+        hi_logged = len(steps_at(hi_pod, 1))
+        procs[hi_pod].send_signal(signal.SIGUSR2)
+        deadline = time.monotonic() + FM_WAIT_S
+        hi_stats = None
+        while hi_stats is None:
+            try:
+                with open(hi_out) as f:
+                    hi_stats = json.load(f)
+            except (OSError, ValueError):  # not there, or half written
+                if time.monotonic() > deadline:
+                    fail("fleet market: hi's pod never wrote its launch counts")
+                time.sleep(0.05)
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        for p in procs.values():
+            p.wait(timeout=FM_WAIT_S)
+
+        # -- checks ---------------------------------------------------------
+        calm = [x for x in timeline if x["phase"] == "calm"]
+        if any(d["dry_run"]["diff"] for x in calm for d in x["decisions"].values()):
+            fail(f"fleet market: a calm tick changed something: {calm}")
+        pre_events = [e.data for e in telemetry.get_recorder().events()
+                      if e.kind == "fleet.preempt"]
+        if not pre_events or any(p["victim"] != "lo" or p["beneficiary"] != "api"
+                                 for p in pre_events):
+            fail(f"fleet market: preemptions {pre_events}")
+        spiked = [x["holdings"] for x in timeline if x["phase"] == "spike"]
+        waiting = [x["holdings"] for x in timeline if x["phase"] == "spike-wait"]
+        full = {"api": 1, "hi": 1, "lo": 2}
+        if not spiked or any(h != {"api": 2, "hi": 1, "lo": 1} for h in spiked) or any(
+                h != full for h in waiting):
+            fail(f"fleet market: holdings in the spike {spiked}, before the grant {waiting}")
+        if timeline[-1]["holdings"] != full:
+            fail(f"fleet market: holdings at the end {timeline[-1]['holdings']}, want {full}")
+        # the controller's own tick keeps the market's retargets (C-5):
+        # lo's target and trainer workload read 1 after every spike tick,
+        # and 2 once restored
+        lo_ticks = [(x["phase"], x["lo_after_tick"]) for x in timeline]
+        if any(v != (1, 1) for ph, v in lo_ticks if ph == "spike") or (
+                lo_ticks[-1][1] != (2, 2)):
+            fail(f"fleet market: lo's (target, parallelism) after each tick {lo_ticks}")
+        grant = next(x for x in timeline if x["phase"] == "spike")
+        lo_d, api_d = grant["decisions"]["lo"], grant["decisions"]["api"]
+        if not (lo_d["preempted"] and lo_d["preempted_by"] == "api" and lo_d["drained"] is True
+                and lo_d["actuated"] and api_d["dry_run"]["proposed"] == 2):
+            fail(f"fleet market: the grant tick's entries: lo {lo_d}, api {api_d}")
+        up = [m for n, m in stamps.get("api_target", []) if n == 2]
+        if not up or not (up[0]["world_acked"] and up[0]["world_size"] == 1):
+            fail(f"fleet market: when api's retarget to 2 landed, lo's coordinator showed "
+                 f"{up[:1]} (want its world of 1 acked)")
+        sizes = [x["resize"] for x in _cp_history(hist[survivor]) if "resize" in x]
+        # the survivor's resize from its world of 2 to 1
+        down = [r for prev, r in zip(sizes, sizes[1:])
+                if prev["world_size"] == 2 and r["world_size"] == 1]
+        skew = max(stop.values()) - min(stop.values())
+        if skew != 0 or not down or down[0]["stop_step"] != stop[survivor] + 1:
+            fail(f"fleet market: lo's members left world 2 after steps {stop} (skew {skew}); "
+                 f"the survivor's resize {down[:1]}")
+        restore = shed_row["decisions"]
+        ids = [lo_d["trace_id"], api_d["trace_id"], restore["api"]["trace_id"],
+               restore["lo"]["trace_id"]]
+        if not all(ids) or len(set(ids)) != 4 or restore["lo"]["dry_run"]["proposed"] != 2 or (
+                restore["api"]["dry_run"]["proposed"] != 1):
+            fail(f"fleet market: transitions' trace ids {ids}; the shed tick {restore}")
+        if lo_plan.trace_id != ids[3] or lo_plan.world_size != 2:
+            fail(f"fleet market: lo's restored plan {lo_plan}, want world 2 under {ids[3]}")
+        # hi: never touched; its steps bit-identical to launcher.run
+        hi_hist = _cp_history(hist[hi_pod])
+        hi_steps = [x for x in hi_hist if "step" in x]
+        hi_resizes = [x["resize"] for x in hi_hist if "resize" in x]
+        if not hi_stable or len(hi_resizes) != 1 or {x["world_size"] for x in hi_steps} != {1}:
+            fail(f"fleet market: hi was touched: generation stable {hi_stable}, resizes "
+                 f"{hi_resizes}")
+        if [x["step"] for x in hi_steps] != list(range(len(hi_steps))):
+            fail("fleet market: hi's steps are not 0..n-1 once each")
+        k = hi_stats["launches"]["flash_fwd"] // max(1, hi_want["flash_fwd"])
+        if hi_stats["launches"] != {n: v * k for n, v in hi_want.items()} or k < hi_logged:
+            fail(f"fleet market: hi's pod launched {hi_stats['launches']} over "
+                 f"{len(hi_steps)} logged steps (want {hi_want} a step)")
+        d_launch = {n: launches[n] - window["launches"][n] for n in launches}
+        d_prefill = [a - b for a, b in zip(prefills, window["prefills"])]
+        if d_launch["flash_fwd"] != layers * sum(d_prefill) or min(d_prefill) < 1 or any(
+                v for n, v in d_launch.items() if n != "flash_fwd"):
+            fail(f"fleet market: with both replicas up, {d_prefill} prefills (A, B) and "
+                 f"launches {d_launch} (want {layers} flash_fwd a prefill)")
+        t_first_b = min(t for p, r in served["api-b"] for t, ev in r["lines"] if "token" in ev)
+        # the shed: router steered first, the drain migrated the live
+        # generation to A, which is bit-identical to the unmigrated run
+        _stream_ok(long_res, FM_LONG_NEW, "fleet market: the migrated generation")
+        if long_res["tokens"] != long_ref:
+            fail("fleet market: the migrated generation differs from the unmigrated run")
+        shed = [d for d in drains if d["address"] == reps["api-b"].address]
+        mig = (shed[0]["ack"].get("migrate") or {}) if shed else {}
+        if not shed or not shed[0]["ack"]["drained"] or mig.get("migrated") != 1 or (
+                shed[0].get("migrate_to") != reps["api-a"].address):
+            fail(f"fleet market: the shed's drain {shed}")
+        evs = telemetry.get_recorder().events()
+        steers = [e.seq for e in evs if e.kind == "route.steer" and e.data.get("replica") == "api-b"]
+        starts = [e.seq for e in evs if e.kind == "serve.drain"
+                  and e.data.get("replica") == "api-b" and e.data.get("phase") == "start"]
+        if not (steers and starts and steers[0] < starts[0]) or retries:
+            fail(f"fleet market: the router steered at {steers}, B's drain started at {starts}, "
+                 f"{retries} 503s absorbed")
+        statuses = {r["status"] for _, r in spike} | {long_res["status"]}
+        if statuses != {200}:
+            fail(f"fleet market: request statuses {statuses}")
+        # the reference for hi: launcher.run of the same configuration
+        torch.cuda.empty_cache()
+        ref = launcher.run("transformer_lm", steps=FM_HI_REF_STEPS, seed=SEED,
+                           global_batch_size=TRAIN_BATCH, checkpoint_interval=FM_CKPT_INTERVAL,
+                           lr=TRAIN_LR, device=FM_DEVICE, model_kwargs=CP_MODEL_KWARGS)
+        ref_losses = [r.loss for r in ref.history]
+        del ref
+        if [x["loss"] for x in hi_steps[:FM_HI_REF_STEPS]] != ref_losses:
+            fail(f"fleet market: hi's first {FM_HI_REF_STEPS} losses "
+                 f"{[x['loss'] for x in hi_steps[:FM_HI_REF_STEPS]]} are not bit-identical "
+                 f"to launcher.run's {ref_losses}")
+
+        # -- the record -------------------------------------------------------
+        ttft_during = [r["ttft_ms"] for _, r in spike]
+        out.update({
+            "arbiter_run_once_ms_p50_max": [float(np.percentile(arbiter_ms, 50)),
+                                            max(arbiter_ms)],
+            "controller_tick_ms_p50_max": [float(np.percentile(tick_ms, 50)), max(tick_ms)],
+            "spike_first_request_to_b_first_token_s": t_first_b - t_spike,
+            "b_start_s": b_state.get("started_s"),
+            "lo_preempt_decision_to_world_ack_s":
+                stamps["lo_ack"][0][1] - stamps["lo_decision"][0],
+            "api_shed": {"drain_s": shed[0]["s"], "migrated_sequences": mig.get("migrated"),
+                         "migrated_bytes": mig.get("bytes"),
+                         "migrated_blocks": (mig.get("bytes") or 0) // block_bytes},
+            "ttft_ms_p50_p95": {"before": _quantiles(ttft_before),
+                                "during": _quantiles(ttft_during),
+                                "after": _quantiles(ttft_after)},
+            "spike_streams": len(spike), "served_by": {k: len(v) for k, v in served.items()},
+            "prefills_with_both_up": d_prefill, "launches_with_both_up": d_launch,
+            "chips_over_time": [(round(x["t_s"], 3), x["phase"], x["holdings"], x["free"],
+                                 {"lo_target_parallelism": x["lo_after_tick"]})
+                                for x in timeline],
+            "preemptions": pre_events, "trace_ids": ids, "stop_steps": stop,
+            "traffic_end_to_shed_s": b_state.get("shed_at", t_traffic_end) - t_traffic_end,
+            "hi": {"steps": len(hi_steps), "generation": hi_gen0,
+                   "launches": hi_stats["launches"], "peak_gb": hi_stats["peak_bytes"] / 1e9,
+                   "reference_steps": FM_HI_REF_STEPS},
+            "recompute": rc, "fleet_command": fleet_cmd,
+            "peak_allocated_gb_smoke_process": torch.cuda.max_memory_allocated() / 1e9,
+        })
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        serving_lane.post_drain = real_post_drain
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        if router is not None:
+            router.stop()
+        for r in reps.values():
+            if not r._dead:
+                r.stop()
+        for s in servers.values():
+            s.stop()
+        if old_template is None:
+            os.environ.pop("EDL_COORD_ADDR_TEMPLATE", None)
+        else:
+            os.environ["EDL_COORD_ADDR_TEMPLATE"] = old_template
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"fleet_market": out})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -3091,6 +3864,7 @@ def main() -> int:
     phase_serving_replica(card)
     phase_serving_fleet(card)
     phase_control_plane(card)
+    phase_fleet_market(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

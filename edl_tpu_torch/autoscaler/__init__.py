@@ -1,9 +1,8 @@
 """L3 autoscaler: the decision plane (counterpart of ``edl_tpu.autoscaler``).
 
 Pure algorithm in ``algorithm`` (ref ``pkg/autoscaler.go:201-337``),
-event-driven control loop in ``scaler`` (ref ``:451-485``).  The JAX
-package's serving lane (``autoscaler/serving.py``) comes with the fleet
-market (ROADMAP A-4).
+event-driven control loop in ``scaler`` (ref ``:451-485``), and the
+serving lane in ``serving``.
 """
 
 from edl_tpu_torch.autoscaler.algorithm import (
@@ -16,8 +15,18 @@ from edl_tpu_torch.autoscaler.algorithm import (
     scale_all_jobs_dry_run,
 )
 from edl_tpu_torch.autoscaler.scaler import Autoscaler, ScalePlan
+from edl_tpu_torch.autoscaler.serving import (
+    ServingLane,
+    attach_serving_lane,
+    kube_replica_glue,
+    post_drain,
+)
 
 __all__ = [
+    "ServingLane",
+    "attach_serving_lane",
+    "kube_replica_glue",
+    "post_drain",
     "JobView",
     "PendingDemand",
     "fulfillment",

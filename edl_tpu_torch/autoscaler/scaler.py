@@ -491,7 +491,7 @@ class Autoscaler:
         wait_for_world_ack(client, self.victim_drain_timeout)
 
     def _delete_dropped_members(
-        self, job: TrainingJob, client, plan=None
+        self, job: TrainingJob, client, plan=None, quiesce: bool = True
     ) -> List[str]:
         """Delete the pods whose member ids are registered but no
         longer in the plan's rank order (the scale-down victims the
@@ -500,11 +500,14 @@ class Autoscaler:
         world at the consensus-agreed stop boundary before their pods
         are SIGTERMed.  ``plan``: the retargeted plan the caller
         already fetched (victims and the journaled stop_step must come
-        from the same plan).  Best effort: a failure here only degrades
-        to the reference's behavior (kube picks the victim)."""
+        from the same plan).  ``quiesce=False``: the caller already
+        waited for the ack (the fleet market's ``wait_drain``).  Best
+        effort: a failure here only degrades to the reference's behavior
+        (kube picks the victim)."""
         import sys
 
-        self._wait_for_quiesce(client)
+        if quiesce:
+            self._wait_for_quiesce(client)
         try:
             if plan is None:
                 plan = client.plan()

@@ -17,10 +17,11 @@ This CLI subsumes that role:
 - ``local-sim``   controller + autoscaler closed loop against an
                   in-memory fake cluster of GPU nodes (no k8s needed)
 - ``controller``  the control-plane daemon against a cluster
+- ``fleet``       one table over every GPU-market bidder's coordinator
 
 Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``ingest``,
-``metrics``, ``route``, ``fleet``, ``serve`` and ``trace`` are not
-ported yet (ROADMAP A-6).
+``metrics``, ``route``, ``serve`` and ``trace`` are not ported yet
+(ROADMAP A-6).
 """
 
 from __future__ import annotations
@@ -246,6 +247,132 @@ def cmd_local_sim(args) -> int:
     return 0
 
 
+def _parse_fleet_member(spec: str):
+    """``name=url[,chips=N][,priority=P]`` -> (name, url, chips, prio)."""
+    name, sep, rest = spec.partition("=")
+    if not sep:
+        raise ValueError(f"--job/--serve wants name=url[,k=v], got {spec!r}")
+    parts = rest.split(",")
+    url = parts[0]
+    chips, priority = 1, 0
+    for kv in parts[1:]:
+        k, _, v = kv.partition("=")
+        if k == "chips":
+            chips = int(v)
+        elif k == "priority":
+            priority = int(v)
+        else:
+            raise ValueError(f"unknown fleet member option {k!r}")
+    return name, url, chips, priority
+
+
+def cmd_fleet(args) -> int:
+    """Cluster-wide fleet status (`fleet --job lo=host:port,chips=4
+    --serve api=host:port`): one table over every bidder's coordinator
+    — world/target, chips (GPUs: the market keeps the JAX package's
+    word), the training goodput signals the market's objective reads
+    (goodput frac, step rate), and the serving SLO signals its hard
+    constraints read (p95, queue depth) — plus the GPU totals.  The same reads the arbiter's bidders make each
+    tick, so what this prints IS the market's next input."""
+    from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+    from edl_tpu_torch.telemetry.aggregate import histogram_quantile
+
+    rows = []
+    for kind, specs in (("training", args.job), ("serving", args.serve)):
+        for spec in specs or []:
+            name, url, chips, priority = _parse_fleet_member(spec)
+            row = {
+                "job": name,
+                "kind": kind,
+                "priority": priority,
+                "chips_per_unit": chips,
+                "url": url,
+            }
+            client = HTTPCoordinator(url, timeout=args.timeout)
+            try:
+                snap = client.metrics() or {}
+            except Exception as e:
+                row["error"] = f"unreachable: {e}"
+                rows.append(row)
+                continue
+            row["world"] = snap.get("world_size")
+            row["target"] = snap.get("target_world")
+            # Same fallback the market's bidders read (TrainingBidder.
+            # collect / ServingLane.current_replicas): target first,
+            # live world while a retarget hasn't landed — the table
+            # must show the market's actual next input.
+            units = int(
+                snap.get("target_world") or snap.get("world_size") or 0
+            )
+            row["chips"] = units * chips
+            try:
+                tel = client.telemetry() or {}
+            except Exception:
+                tel = {}
+            goodput = tel.get("goodput") or {}
+            row["goodput_frac"] = goodput.get("frac")
+            row["step_rate"] = tel.get("step_rate")
+            hists = (tel.get("merged") or {}).get("histograms") or {}
+            gauges = (tel.get("merged") or {}).get("gauges") or {}
+            lat = hists.get("edl_serve_latency_seconds")
+            if lat:
+                # histogram_quantile merges label-keyed series itself
+                # (with the bucket-schema-skew guard)
+                p95 = histogram_quantile(lat, 0.95)
+                row["p95_ms"] = round(p95 * 1000, 2) if p95 else None
+            depth = gauges.get("edl_serve_queue_depth") or {}
+            if depth:
+                row["queue_depth"] = max(depth.values())
+            rows.append(row)
+    if not rows:
+        print(
+            "error: no bidders (give --job name=url and/or "
+            "--serve name=url)",
+            file=sys.stderr,
+        )
+        return 2
+    allocated = sum(r.get("chips") or 0 for r in rows)
+    if args.json:
+        print(
+            json.dumps(
+                {
+                    "bidders": rows,
+                    "chips_allocated": allocated,
+                    "chips_total": args.chips or None,
+                },
+                indent=2,
+            )
+        )
+        return 0
+
+    def fmt(v, nd=3):
+        if v is None:
+            return "-"
+        if isinstance(v, float):
+            return f"{v:.{nd}f}"
+        return str(v)
+
+    print(
+        f"{'JOB':<14} {'KIND':<9} {'PRI':>3} {'WORLD':>5} {'TARGET':>6} "
+        f"{'CHIPS':>5} {'GOODPUT':>7} {'STEP/S':>7} {'P95_MS':>7} "
+        f"{'QUEUE':>5}"
+    )
+    for r in rows:
+        if "error" in r:
+            print(f"{r['job']:<14} {r['kind']:<9} {r['error']}")
+            continue
+        print(
+            f"{r['job']:<14} {r['kind']:<9} {r['priority']:>3} "
+            f"{fmt(r.get('world')):>5} {fmt(r.get('target')):>6} "
+            f"{fmt(r.get('chips')):>5} {fmt(r.get('goodput_frac')):>7} "
+            f"{fmt(r.get('step_rate'), 2):>7} "
+            f"{fmt(r.get('p95_ms'), 2):>7} {fmt(r.get('queue_depth')):>5}"
+        )
+    total = f" / {args.chips} total" if args.chips else ""
+    print(f"chips allocated: {allocated}{total}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="edl", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -331,6 +458,32 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--max-load", type=float, default=0.97)
     s.add_argument("--iterations", type=int, default=6)
     s.set_defaults(fn=cmd_local_sim)
+
+    s = sub.add_parser(
+        "fleet",
+        help="cluster-wide fleet status: every bidder's world/GPUs + "
+        "the market's goodput/SLO input signals",
+    )
+    s.add_argument(
+        "--job",
+        action="append",
+        metavar="NAME=URL[,chips=N][,priority=P]",
+        help="a training job's coordinator (repeatable; chips = GPUs "
+        "per trainer)",
+    )
+    s.add_argument(
+        "--serve",
+        action="append",
+        metavar="NAME=URL[,chips=N]",
+        help="a serving fleet's coordinator (repeatable)",
+    )
+    s.add_argument(
+        "--chips", type=int, default=0,
+        help="inventory total in GPUs (for the footer)",
+    )
+    s.add_argument("--json", action="store_true", help="dump raw JSON")
+    s.add_argument("--timeout", type=float, default=5.0)
+    s.set_defaults(fn=cmd_fleet)
 
     return p
 

@@ -79,3 +79,10 @@ class ClusterResource:
         if self.gpu_total <= 0:
             return 1.0
         return self.gpu_limit / self.gpu_total
+
+    def free_gpus(self) -> int:
+        """Unclaimed GPUs (total minus the scheduled pods' limits) — the
+        single number the fleet arbiter's GPU market opens each tick
+        with (``edl_tpu_torch.fleet.inventory``; the JAX package's
+        ``free_chips``)."""
+        return max(0, self.gpu_total - self.gpu_limit)

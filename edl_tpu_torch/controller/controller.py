@@ -17,14 +17,15 @@ The watch source is injected as a plain callback registry so local
 mode, tests, and a real CRD informer (kubectl watch) all drive the same
 object.
 
-Not ported yet: the multi-job GPU market (the JAX controller's
-``_fleet_inventory`` / ``_maybe_attach_fleet``, which hand jobs with
-``spec.priority > 0`` to ``edl_tpu.fleet``'s arbiter once two of them
-are live).  Until ROADMAP A-4 brings it, this controller refuses a
-second live prioritized job with ``NotImplementedError`` rather than
-planning it in the single-cluster lane, which the JAX controller never
-does.  The watch (``watch.TrainingJobWatcher``) hands such a refusal,
-and a ``ValidationError``, to ``refuse`` for that CR alone.
+Once two live jobs carry ``spec.priority > 0`` the controller builds the
+multi-job GPU market (``edl_tpu_torch.fleet``'s arbiter) and rides it on
+the autoscaler tick; those jobs leave the single-cluster lane.  For
+them the market's coordinator target is the decision and the trainer
+workload follows it (``_fleet_resize``): a market job's parallelism is
+never POSTed back as its target, or every tick would undo the market's
+retargets.  The
+watch (``watch.TrainingJobWatcher``) hands a ``ValidationError`` or a
+``NotImplementedError`` from a handler to ``refuse`` for that CR alone.
 """
 
 from __future__ import annotations
@@ -67,29 +68,148 @@ class Controller:
         #: jobs whose coordinator handshake is currently failing (each
         #: outage logs once; cleared on recovery)
         self._handshake_down: set = set()
+        #: jobs the fleet arbiter owns: once >= 2 managed jobs carry
+        #: ``spec.priority``, the controller constructs the GPU-market
+        #: arbiter itself and rides it on the autoscaler tick; these
+        #: jobs leave the single-cluster lane (the market supersedes
+        #: per-job planning for them)
+        self._fleet_managed: set = set()
 
-    # -- the multi-job GPU market (not ported: ROADMAP A-4) -----------------
-    def _refuse_fleet_market(self, incoming: Optional[TrainingJob] = None) -> None:
-        """Raise where the JAX controller would hand jobs to the fleet
-        market: two or more live jobs with ``spec.priority > 0``
-        (``incoming`` counts as one of them)."""
+    # -- multi-job GPU market (edl_tpu_torch.fleet) --------------------------
+    def _fleet_inventory(self):
+        """Live GPU ledger for the arbiter: everything scheduled
+        OUTSIDE the fleet's own jobs parks under one opaque holding the
+        market can never hand out (the fleet jobs' pods are the
+        market's own allocations, not outside usage)."""
+        from edl_tpu_torch.fleet.inventory import ChipInventory
+
+        r = self.cluster.inquiry_resource()
+        inv = ChipInventory(total_chips=r.gpu_total)
+        used = r.gpu_total - r.free_gpus()
+        fleet_used = 0
+        workloads = self.cluster.trainer_workloads_map()
+        for name in self._fleet_managed:
+            job = self.jobs.get(name)
+            w = workloads.get(name)
+            if job is not None and w is not None:
+                fleet_used += w.parallelism * job.gpu_per_trainer()
+        outside = max(0, used - fleet_used)
+        if outside:
+            inv.set_holding("(scheduled)", outside)
+        return inv
+
+    def _maybe_attach_fleet(self) -> None:
+        """Promote prioritized jobs into the GPU market.  Once >= 2
+        live jobs carry ``spec.priority`` (> 0), construct a
+        ``FleetArbiter`` over the live inventory and ``attach_fleet``
+        it to the autoscaler tick; jobs gaining a priority later join
+        the market, jobs deleted or finished leave it.  An arbiter
+        already attached (tests / custom markets via the explicit
+        ``attach_fleet``) is left alone except for bidder sync of
+        controller-managed jobs."""
+        from edl_tpu_torch.fleet import FleetArbiter, TrainingBidder, attach_fleet
+
         live = {
-            name
+            name: job
             for name, job in self.jobs.items()
             if job.spec.priority > 0
             and job.status.state not in (JobState.SUCCEED, JobState.FAILED)
         }
-        if incoming is not None:
-            live.discard(incoming.name)
-            if incoming.spec.priority > 0:
-                live.add(incoming.name)
-        if len(live) >= 2:
-            raise NotImplementedError(
-                f"jobs {sorted(live)} carry spec.priority > 0: prioritized "
-                "jobs share a GPU market (edl_tpu.fleet in the JAX package) "
-                "that the PyTorch port has not ported yet (ROADMAP A-4, the "
-                "fleet market); drop the priority of all but one job"
+        arbiter = getattr(self.autoscaler, "fleet_arbiter", None)
+        if arbiter is None:
+            if len(live) < 2:
+                return
+            arbiter = FleetArbiter(
+                lambda: self._fleet_inventory(),
+                trainers=[self._fleet_bidder(job) for job in live.values()],
             )
+            attach_fleet(self.autoscaler, arbiter)
+            self._fleet_managed = set(live)
+            for job in live.values():
+                # The market supersedes the single-cluster lane for
+                # the jobs it owns — the scaler must not fight it.
+                self.autoscaler.on_del(job)
+            return
+        # Bidder sync: controller-managed jobs only (explicitly
+        # attached bidders for jobs this controller never saw stay).
+        for name, job in live.items():
+            if name in self._fleet_managed:
+                # Spec edits to a market-owned job (priority raised,
+                # bounds widened) must reach its bidder: on_update
+                # keeps market jobs out of the single-cluster lane, so
+                # the tick-time sync is where the arbiter learns.
+                for b in arbiter.trainers:
+                    if b.name == name:
+                        fresh = TrainingBidder.from_job(job, b.coordinator)
+                        b.priority = fresh.priority
+                        b.chips_per_unit = fresh.chips_per_unit
+                        b.min_units = fresh.min_units
+                        b.max_units = fresh.max_units
+                        b.legal_units = fresh.legal_units
+                continue
+            if not any(b.name == name for b in arbiter.trainers):
+                arbiter.add_trainer(self._fleet_bidder(job))
+            # Claim the job even when an explicitly attached bidder
+            # already carries its name: the job must still leave the
+            # single-cluster lane, or the market and the per-job
+            # planner issue conflicting retargets for one workload.
+            self._fleet_managed.add(name)
+            self.autoscaler.on_del(job)
+        for name in self._fleet_managed - set(live):
+            self._fleet_drop(name)
+            job = self.jobs.get(name)
+            if job is not None and job.status.state not in (
+                JobState.SUCCEED,
+                JobState.FAILED,
+            ):
+                # Still-live job that lost its priority: hand it back
+                # to the single-cluster lane — owned by NEITHER
+                # planner, it would never scale again.
+                self.autoscaler.on_add(job)
+
+    def _fleet_bidder(self, job: TrainingJob):
+        """A market job's bidder, which moves the job's trainer
+        workload with each retarget it makes (``_fleet_resize``)."""
+        from edl_tpu_torch.fleet import TrainingBidder
+
+        name = job.name
+        return TrainingBidder.from_job(
+            job,
+            self._coord_client(job),
+            resize=lambda units: self._fleet_resize(name, units),
+        )
+
+    def _fleet_resize(self, name: str, units: int) -> None:
+        """Move a market job's trainer workload to the market's
+        ``units``, with the single-cluster lane's victim choice: a
+        scale-down (called once the retargeted world acked) deletes the
+        pods the coordinator dropped from its plan, then PUTs; a
+        scale-up PUTs before the retarget, so the pods can exist when
+        the target grows.  The freed GPUs are then free on the cluster
+        too, not only in the market's ledger."""
+        job = self.jobs.get(name)
+        if job is None:
+            return
+        w = self.cluster.get_trainer_workload(job)
+        if w is None or w.parallelism == units:
+            return
+        if units < w.parallelism:
+            self.autoscaler._delete_dropped_members(
+                job, self._coord_client(job), quiesce=False
+            )
+        self.cluster.update_parallelism(job, units)
+
+    def _fleet_drop(self, name: str) -> None:
+        """Remove a job's bidder from the market (deleted, terminal,
+        or priority edited away)."""
+        if name not in self._fleet_managed:
+            return
+        self._fleet_managed.discard(name)
+        arbiter = getattr(self.autoscaler, "fleet_arbiter", None)
+        if arbiter is not None:
+            arbiter.trainers = [
+                b for b in arbiter.trainers if b.name != name
+            ]
 
     def refuse(self, manifest: dict, err: Exception) -> None:
         """Record a CR event the controller refused (``on_add`` /
@@ -118,11 +238,8 @@ class Controller:
     # -- event handlers (ref onAdd/onUpdate/onDelete, :110-147) --------------
     def on_add(self, job: TrainingJob) -> TrainingJob:
         """Validate, create cluster objects, hand to the autoscaler
-        (the reference only logged here — its TODO, ``:115-133``).
-        Raises ``NotImplementedError`` for a second live prioritized
-        job (see the module docstring)."""
+        (the reference only logged here — its TODO, ``:115-133``)."""
         job = job.validate()
-        self._refuse_fleet_market(job)
         job.status.state = JobState.CREATED
         job.status.submitted_at = self._clock()
         job.status.parallelism = job.spec.trainer.min_instance
@@ -137,7 +254,6 @@ class Controller:
 
     def on_update(self, job: TrainingJob) -> None:
         job = job.validate()
-        self._refuse_fleet_market(job)
         old = self.jobs.get(job.name)
         if old is not None:
             job.status = old.status
@@ -148,7 +264,13 @@ class Controller:
             # autoscaler or resurrect the coordinator that
             # mark_succeeded/complete already tore down.
             return
-        self.autoscaler.on_update(job)
+        if job.name not in self._fleet_managed:
+            # Market-owned jobs stay OUT of the single-cluster lane: a
+            # watch update re-enrolling one would have two planners
+            # fighting over the same workload.  (A job whose priority
+            # was edited away re-enters the lane via the market's
+            # gone-sync, not here.)
+            self.autoscaler.on_update(job)
         if spec_changed:
             # Re-render + re-apply so image/resource changes reach the
             # running workload (parallelism preserved).
@@ -162,6 +284,7 @@ class Controller:
 
     def on_delete(self, job: TrainingJob) -> None:
         self.autoscaler.on_del(job)
+        self._fleet_drop(job.name)
         self.lifecycle.destroy(job)
         self.jobs.pop(job.name, None)
         # A resubmitted job with an identical status must hit the fresh
@@ -257,10 +380,13 @@ class Controller:
         """Level-triggered half of the actuation handshake: converge
         every live coordinator's target world onto the observed trainer
         parallelism, and fire completion when a coordinator reports the
-        job finished.  The autoscaler POSTs targets eagerly at actuation
-        time; this pass repairs any handshake that was lost (coordinator
-        still scheduling, transient network) so the two halves cannot
-        stay disconnected.  Probes run with bounded
+        job finished.  A market job converges the other way: its
+        coordinator target is the market's decision, and a workload
+        left behind it (a PUT that failed at actuation) is moved onto
+        it by ``_fleet_resize``.  The autoscaler POSTs targets eagerly
+        at actuation time; this pass repairs any handshake that was
+        lost (coordinator still scheduling, transient network) so the
+        two halves cannot stay disconnected.  Probes run with bounded
         concurrency, and a RUNNING job whose coordinator stays
         unreachable is logged (once per outage) — a bad Service or
         NetworkPolicy must not be invisible."""
@@ -297,6 +423,11 @@ class Controller:
                 m = coord.metrics()
                 if m.get("completed"):
                     return (job.name, "completed")
+                if job.name in self._fleet_managed:
+                    target = m.get("target_world")
+                    if target and target != parallelism:
+                        return (job.name, ("resize", int(target)))
+                    return (job.name, "ok")
                 if m.get("target_world") != parallelism:
                     coord.set_target_world(parallelism)
                 return (job.name, "ok")
@@ -308,6 +439,16 @@ class Controller:
         for name, outcome in results:
             if outcome == "completed":
                 self.mark_succeeded(name)
+            elif isinstance(outcome, tuple):
+                self._handshake_down.discard(name)
+                try:
+                    self._fleet_resize(name, outcome[1])
+                except Exception as e:  # the next tick retries
+                    print(
+                        f"[edl-controller] moving {name}'s trainers to the "
+                        f"market's {outcome[1]} failed: {e}",
+                        file=sys.stderr,
+                    )
             elif outcome == "ok":
                 self._handshake_down.discard(name)
             elif name not in self._handshake_down:
@@ -368,6 +509,9 @@ class Controller:
         pod_nodes = self.cluster.job_pod_nodes_map(pods)
         workloads = self.cluster.trainer_workloads_map()
         self.reconcile_status(pods_by_job, workloads)
+        # GPU market promotion/sync BEFORE the scaler tick: the
+        # attached arbiter rides the same run_once below.
+        self._maybe_attach_fleet()
         for name in list(self._pending_refresh):
             job = self.jobs.get(name)
             if job is None or self.lifecycle.refresh(job):
@@ -375,11 +519,12 @@ class Controller:
         plan = self.autoscaler.run_once(
             workloads=workloads, pods_by_job=pods_by_job, pod_nodes=pod_nodes
         )
-        if plan is not None and plan.targets:
-            # The actuation just changed parallelism: re-list (still
-            # O(1)) so the handshake below converges on the NEW values —
-            # reconciling against the stale snapshot would POST the old
-            # target back and force a spurious world resize.
+        if (plan is not None and plan.targets) or self._fleet_managed:
+            # The actuation (the lane's, or the market's) may just have
+            # changed parallelism: re-list (still O(1)) so the handshake
+            # below converges on the NEW values — reconciling against
+            # the stale snapshot would POST the old target back and
+            # force a spurious world resize.
             workloads = self.cluster.trainer_workloads_map()
         self.reconcile_targets(pods_by_job, workloads)
 

@@ -183,10 +183,6 @@ class InferenceEngine:
         self._last_rejected_spill = -1
         #: (parameter names, leaf specs) of a checkpoint of this model
         self._template: Optional[Tuple[List[str], list]] = None
-        #: the latest ``serve.swap`` / ``serve.swap.rejected`` events
-        #: (the JAX engine journals them in its flight recorder, which
-        #: is not ported)
-        self.swap_events: deque = deque(maxlen=64)
         self.warmed = False
         self._weights: Optional[_Weights] = None
         self._swap_lock = threading.Lock()
@@ -196,6 +192,10 @@ class InferenceEngine:
         from edl_tpu_torch import telemetry
 
         self.telemetry = telemetry.get_registry()
+        #: the flight recorder: ``serve.swap`` / ``serve.swap.rejected``
+        #: journal here, and reach the coordinator's merged /telemetry
+        #: with the replica's reports
+        self.recorder = telemetry.get_recorder()
         self._m_swaps = self.telemetry.counter("edl_serve_hot_swaps_total")
         self._m_swap_rejected = self.telemetry.counter(
             "edl_serve_swap_rejected_total"
@@ -307,13 +307,13 @@ class InferenceEngine:
         self._last_rejected_step = -1
         return w
 
-    def _event(self, kind: str, **fields) -> None:
-        self.swap_events.append({"kind": kind, "time": time.time(), **fields})
-
-    def _reject(self, source: str, serving_step: int, why: str) -> None:
+    def _reject(self, source: str, serving_step: int) -> None:
         self._m_swap_rejected.inc()
-        self._event("serve.swap.rejected", source=source,
-                    serving_step=serving_step, reason=why)
+        self.recorder.record(
+            "serve.swap.rejected",
+            {"source": source, "serving_step": serving_step},
+            step=max(0, serving_step),
+        )
 
     def load(self) -> bool:
         """Initial load: the newest verified DRAM checkpoint, else the
@@ -323,20 +323,24 @@ class InferenceEngine:
         exists."""
         ckpt = self.store.latest_verified()
         if ckpt is not None and not self._fits(ckpt):
-            self._reject("dram", -1, f"step {ckpt.step} does not fit the model's leaves")
+            self._reject("dram", -1)
             ckpt = None
         if ckpt is None and self.store.spill_dir:
             try:
                 ckpt = self.store.load_from_disk(self.leaf_template()[1])
             except FileNotFoundError:
                 ckpt = None
-            except (ValueError, RuntimeError) as e:
-                self._reject("disk", -1, str(e))
+            except (ValueError, RuntimeError):
+                self._reject("disk", -1)
                 ckpt = None
         if ckpt is None:
             return False
         self._install(ckpt)
-        self._event("serve.swap", step=int(ckpt.step), initial=True)
+        self.recorder.record(
+            "serve.swap",
+            {"step": int(ckpt.step), "initial": True},
+            step=int(ckpt.step),
+        )
         return True
 
     def refresh(self) -> bool:
@@ -360,8 +364,8 @@ class InferenceEngine:
             self._last_spill_poll = now
             try:
                 self._poll_spill_dir(current)
-            except Exception as e:
-                self._reject("disk", current, str(e))
+            except Exception:
+                self._reject("disk", current)
         newest = self.store.latest()
         if newest is None or int(newest.step) <= current:
             return False
@@ -372,12 +376,15 @@ class InferenceEngine:
         ckpt = self.store.latest_verified()
         if ckpt is None or int(ckpt.step) <= current or not self._fits(ckpt):
             self._last_rejected_step = int(newest.step)
-            self._reject("dram", current, f"candidate step {int(newest.step)} failed "
-                         "verification or does not fit the model's leaves")
+            self._reject("dram", current)
             return False
         self._install(ckpt)
         self._m_swaps.inc()
-        self._event("serve.swap", step=int(ckpt.step), from_step=current)
+        self.recorder.record(
+            "serve.swap",
+            {"step": int(ckpt.step), "from_step": current},
+            step=int(ckpt.step),
+        )
         return True
 
     def _poll_spill_dir(self, current: int) -> None:
@@ -800,9 +807,6 @@ class DecodeEngine(InferenceEngine):
         if dispatch_timeout is None:
             dispatch_timeout = float(os.environ.get("EDL_SERVE_DISPATCH_TIMEOUT", "0") or 0)
         self.dispatch_timeout = float(dispatch_timeout)
-        from edl_tpu_torch import telemetry
-
-        self.recorder = telemetry.get_recorder()
         self._m_wedged = self.telemetry.counter("edl_serve_dispatch_wedged_total")
 
         def _wedge_trip(what: str, waited: float) -> None:

@@ -487,6 +487,50 @@ CATALOG = {
         "draining / ejected), from the router's last plan sync.",
         "labels": ("state",),
     },
+    # -- multi-job fleet market (edl_tpu_torch.fleet) ------------------------
+    "edl_fleet_chips_total": {
+        "type": "gauge",
+        "help": "GPUs in the fleet arbiter's inventory.",
+        "labels": (),
+    },
+    "edl_fleet_chips_free": {
+        "type": "gauge",
+        "help": "Chips left unallocated after the last market fixed "
+        "point.",
+        "labels": (),
+    },
+    "edl_fleet_chips_allocated": {
+        "type": "gauge",
+        "help": "Chips the market currently allocates to each bidder "
+        "(training job or serving fleet).",
+        "labels": ("job",),
+    },
+    "edl_fleet_target_units": {
+        "type": "gauge",
+        "help": "Decided unit count (trainer replicas / serving "
+        "replicas) per bidder after the last fixed point.",
+        "labels": ("job",),
+    },
+    "edl_fleet_decisions_total": {
+        "type": "counter",
+        "help": "Per-job fleet decision entries journaled (one per "
+        "bidder per arbiter tick).",
+        "labels": (),
+    },
+    "edl_fleet_preemptions_total": {
+        "type": "counter",
+        "help": "Preemption steps the arbiter took (a trainer shed "
+        "one legal size to cover a serving SLO requirement), by "
+        "victim job.",
+        "labels": ("job",),
+    },
+    "edl_fleet_unmet_demand_chips": {
+        "type": "gauge",
+        "help": "Chips a serving fleet's SLO requirement is short "
+        "even after exhausting every preemptible trainer (0 = SLO "
+        "demand covered).",
+        "labels": ("job",),
+    },
     # -- telemetry reports, spans, the flight recorder's spill ----------------
     "edl_telemetry_reports_total": {
         "type": "counter",

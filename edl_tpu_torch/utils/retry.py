@@ -12,8 +12,9 @@
   raises the typed ``GiveUpError`` so callers can tell "the operation
   failed" from "the operation kept failing transiently".
 
-The JAX package also journals each retry in its flight recorder; the
-port has no flight recorder yet, so only the counters are kept.
+Every absorbed failure is counted and journaled in the flight recorder
+(``retry``; exhaustion journals ``retry.giveup``), so the reports carry
+them to the coordinator's merged ``/telemetry``.
 """
 
 from __future__ import annotations
@@ -104,7 +105,10 @@ class RetryPolicy:
                     raise
                 last = e
                 # Telemetry: every absorbed transient failure is
-                # counted.
+                # counted and journaled — "the run retried 40 times
+                # before the give-up" is exactly the post-mortem signal
+                # that used to vanish (flight-recorder step/generation
+                # come from the recorder's ambient context).
                 _note_retry(what, attempt, e)
                 if attempt + 1 >= attempts:
                     break
@@ -127,9 +131,16 @@ def _note_retry(op: str, attempt: int, err: BaseException) -> None:
     from edl_tpu_torch import telemetry
 
     telemetry.get_registry().counter("edl_retry_attempts_total").inc(op=op)
+    telemetry.get_recorder().record(
+        "retry",
+        {"op": op, "attempt": attempt, "error": type(err).__name__},
+    )
 
 
 def _note_giveup(op: str, attempts: int) -> None:
     from edl_tpu_torch import telemetry
 
     telemetry.get_registry().counter("edl_retry_giveups_total").inc(op=op)
+    telemetry.get_recorder().record(
+        "retry.giveup", {"op": op, "attempts": attempts}
+    )

@@ -20,10 +20,12 @@ from edl_tpu.cluster import kube as jax_kube
 from edl_tpu.controller import controller as jax_controller
 from edl_tpu.controller import deploy as jax_deploy
 from edl_tpu.controller import jobparser as jax_parser
+from edl_tpu import fleet as jax_fleet
 from edl_tpu.resource import training_job as jax_tj
 from edl_tpu.runtime import coord_service as jax_service
 from edl_tpu.runtime import coordinator as jax_coord
 from edl_tpu_torch import cli, launcher
+from edl_tpu_torch import fleet as port_fleet
 from edl_tpu_torch.autoscaler import scaler
 from edl_tpu_torch.cluster import cluster as port_cluster
 from edl_tpu_torch.cluster import kube as port_kube
@@ -239,30 +241,217 @@ def test_controller_life_cycle_equals_the_jax_controller():
     assert ["Succeed", "Succeed"] in states
 
 
-def test_a_second_prioritized_job_is_refused_until_the_fleet_market_is_ported():
-    kube = port_kube.FakeKube([port_kube.NodeInfo(name="n", cpu_milli=8000, memory_mega=32768,
-                                                  gpus=8)])
+# ---- the GPU market's wiring against the JAX controller's ------------------------
+
+
+def _market_scenario(S, name):
+    """One market-wiring case of ``tests/test_controller.py`` on eight
+    4-chip (4-GPU) pools; returns what the controller shows after each
+    tick: the arbiter's bidders with their spec fields, the market's
+    jobs, the single-cluster lane's jobs and the live inventory."""
+    kube = S.kube.FakeKube([S.kube.NodeInfo(name=f"pool-{i}", cpu_milli=8000, memory_mega=32768,
+                                            **{"tpu_chips" if S.jax else "gpus": 4})
+                            for i in range(8)])
+    cluster = S.cluster.Cluster(kube)
+    coords = {}
+    ctrl = S.controller.Controller(cluster, S.scaler.Autoscaler(
+        cluster, coord_client_factory=lambda j: coords.setdefault(
+            j.name, S.coord.LocalCoordinator(target_world=1, max_world=4))),
+        clock=lambda: 100.0)
+
+    def job(n, pri=0):
+        return S.tj.TrainingJob.from_manifest(S.w(_manifest(n, 1, 2, "v5e-4", priority=pri)))
+
+    out = []
+
+    def tick():
+        ctrl.run_once()
+        ctrl.autoscaler._drain_events()
+        arbiter = getattr(ctrl.autoscaler, "fleet_arbiter", None)
+        out.append({
+            "bidders": None if arbiter is None else sorted(
+                (b.name, b.priority, b.chips_per_unit, b.min_units, b.max_units,
+                 list(b.legal_units)) for b in arbiter.trainers),
+            "market": sorted(ctrl._fleet_managed),
+            "lane": sorted(ctrl.autoscaler.jobs),
+            "inventory": ctrl._fleet_inventory().snapshot(),
+        })
+
+    if name == "auto_attach":
+        ctrl.on_add(job("hi", 10))
+        tick()  # one prioritized job is not a market
+        ctrl.on_add(job("lo", 1))
+        ctrl.on_add(job("plain"))
+        tick()
+    elif name == "bidder_sync":
+        ctrl.on_add(job("a", 5))
+        ctrl.on_add(job("b", 3))
+        tick()
+        ctrl.on_add(job("c", 7))  # joins the market
+        tick()
+        ctrl.on_delete(ctrl.jobs["b"])  # leaves it
+        tick()
+        ctrl.on_update(job("a", 9))  # a spec edit reaches its bidder
+        tick()
+    elif name == "explicit_arbiter":
+        fleet = jax_fleet if S.jax else port_fleet
+        fleet.attach_fleet(ctrl.autoscaler, fleet.FleetArbiter(
+            8, trainers=[fleet.TrainingBidder("external", None, min_units=1, max_units=1)]))
+        ctrl.on_add(job("x", 2))
+        ctrl.on_add(job("y", 4))
+        tick()  # no second attach
+    elif name == "watch_update":
+        ctrl.on_add(job("a", 5))
+        ctrl.on_add(job("b", 3))
+        tick()
+        ctrl.on_update(job("a", 5))  # the same spec, a new object
+        ctrl.autoscaler._drain_events()
+        out.append(sorted(ctrl.autoscaler.jobs))
+        tick()
+    elif name == "priority_removed":
+        ctrl.on_add(job("a", 5))
+        ctrl.on_add(job("b", 3))
+        tick()
+        ctrl.on_update(job("b"))  # priority -> 0: back to the single lane
+        tick()
+    return out
+
+
+@pytest.mark.parametrize("name", ["auto_attach", "bidder_sync", "explicit_arbiter",
+                                  "watch_update", "priority_removed"])
+def test_market_wiring_equals_the_jax_controller(name):
+    got = _market_scenario(_Side(jax=False), name)
+    assert got == _market_scenario(_Side(jax=True), name)
+    last = got[-1]
+    if name == "auto_attach":
+        assert got[0]["bidders"] is None and got[0]["lane"] == ["hi"]
+        assert [b[:5] for b in last["bidders"]] == [("hi", 10, 4, 1, 2), ("lo", 1, 4, 1, 2)]
+        assert last["market"] == ["hi", "lo"] and last["lane"] == ["plain"]
+        assert last["inventory"]["total_chips"] == 32
+    elif name == "bidder_sync":
+        assert [b[0] for b in got[1]["bidders"]] == ["a", "b", "c"]
+        assert last["market"] == ["a", "c"] and last["lane"] == []
+        assert [b[:2] for b in last["bidders"]] == [("a", 9), ("c", 7)]
+    elif name == "explicit_arbiter":
+        assert [b[0] for b in last["bidders"]] == ["external", "x", "y"]
+    elif name == "watch_update":
+        assert got[1] == [] and last["lane"] == []
+    else:
+        assert [b[0] for b in last["bidders"]] == ["a"] and last["lane"] == ["b"]
+
+
+class _Lane:
+    """A serving lane whose requirement the test sets; its replicas
+    are its coordinator's target."""
+
+    def __init__(self):
+        self.coordinator = port_coord.LocalCoordinator(target_world=1, max_world=2)
+        self.min_replicas, self.max_replicas, self.required = 1, 2, 1
+        self.on_scale = None
+
+    def observe(self):
+        return {"queue_depth": 0}
+
+    def current_replicas(self):
+        return self.coordinator.target_world()
+
+    def desired_replicas(self, obs, current):
+        return self.required, "scripted"
+
+    def drain_victims(self, before, units):
+        return {"acked": True}
+
+
+def _market_controller():
+    """``lo`` (priority 1, 1-2 GPUs) and ``hi`` (priority 10, 1 GPU) on
+    four 1-GPU nodes; after the first tick ``lo`` holds 2, and the
+    serving fleet ``api`` (priority 100, 1 replica) has joined: full."""
+    kube = port_kube.FakeKube([port_kube.NodeInfo(name=f"gpu-{i}", cpu_milli=8000,
+                                                  memory_mega=32768, gpus=1) for i in range(4)])
     cluster = port_cluster.Cluster(kube)
+    coords = {}
     ctrl = port_controller.Controller(cluster, scaler.Autoscaler(
-        cluster, coord_client_factory=lambda j: port_coord.LocalCoordinator()))
-    hi = tpu_to_gpu(_manifest("hi", 1, 2, "v5e-1", priority=2))
-    ctrl.on_add(tj.TrainingJob.from_manifest(hi))
-    ctrl.on_add(tj.TrainingJob.from_manifest(tpu_to_gpu(_manifest("plain", 1, 2, "v5e-1"))))
-    with pytest.raises(NotImplementedError, match="ROADMAP A-4"):
-        ctrl.on_add(tj.TrainingJob.from_manifest(tpu_to_gpu(_manifest("hi2", 1, 2, "v5e-1",
-                                                                      priority=1))))
-    assert sorted(ctrl.jobs) == ["hi", "plain"]
-    assert kube.get_workload("hi2-trainer") is None
-    with pytest.raises(NotImplementedError, match="fleet market"):
-        ctrl.on_update(tj.TrainingJob.from_manifest(tpu_to_gpu(_manifest("plain", 1, 2, "v5e-1",
-                                                                         priority=5))))
-    ctrl.mark_succeeded("hi")  # a finished job leaves the market's count
-    ctrl.on_add(tj.TrainingJob.from_manifest(tpu_to_gpu(_manifest("hi2", 1, 2, "v5e-1",
-                                                                  priority=1))))
+        cluster, coord_client_factory=lambda j: coords.setdefault(
+            j.name, port_coord.LocalCoordinator(target_world=1, max_world=2))))
+    for name, mx, pri in (("lo", 2, 1), ("hi", 1, 10)):
+        ctrl.on_add(tj.TrainingJob.from_manifest(tpu_to_gpu(
+            _manifest(name, 1, mx, "v5e-1", priority=pri))))
+    ctrl.run_once()
+    lane = _Lane()
+    ctrl.autoscaler.fleet_arbiter.add_fleet(port_fleet.ServingBidder("api", lane, priority=100))
+    return ctrl, kube, coords, lane
+
+
+def _lo_view(ctrl, kube, coords):
+    return (coords["lo"].target_world(), kube.get_workload("lo-trainer").parallelism,
+            len([p for p in kube.list_pods() if p.job_name == "lo"]))
+
+
+def test_controller_ticks_hold_the_market_retargets_through_a_preemption_and_a_restore():
+    """The market's training retargets survive the controller's own
+    tick: ``reconcile_targets`` does not POST the old parallelism back
+    (the target does not flap), and the preempted job's workload and
+    pods follow the market, so its GPU is free on the cluster too."""
+    ctrl, kube, coords, lane = _market_controller()
+    posted, real = [], coords["lo"].set_target_world
+
+    def record(n, trace_id=""):
+        posted.append(n)
+        return real(n, trace_id=trace_id)
+
+    coords["lo"].set_target_world = record
+    # what the cluster showed when api's replica count moved
+    scaled = []
+    lane.on_scale = lambda old, new: scaled.append(
+        (old, new, ctrl.cluster.inquiry_resource().free_gpus()))
+    assert _lo_view(ctrl, kube, coords) == (2, 2, 2)
+    ctrl.run_once()
+    assert _lo_view(ctrl, kube, coords) == (2, 2, 2) and posted == []  # calm: full
+    lane.required = 2  # the spike
+    views = []
+    for _ in range(3):
+        ctrl.run_once()
+        views.append((_lo_view(ctrl, kube, coords), lane.current_replicas()))
+    assert views == [((1, 1, 1), 2)] * 3
+    assert posted == [1]  # one preemption, not one a tick
+    assert scaled == [(1, 2, 2)]  # lo's pod was gone before api grew
+    # lo's second GPU is free on the cluster (api's replica B is not a pod here)
+    assert ctrl.cluster.inquiry_resource().free_gpus() == 2
+    lane.required = 1  # the spike clears
+    views = []
+    for _ in range(3):
+        ctrl.run_once()
+        views.append((_lo_view(ctrl, kube, coords), lane.current_replicas()))
+    assert views == [((2, 2, 2), 1)] * 3 and posted == [1, 2]
+    assert coords["hi"].target_world() == 1
+    assert kube.get_workload("hi-trainer").parallelism == 1
+
+
+def test_a_market_resize_whose_put_failed_is_repaired_by_the_next_tick():
+    """The bidder's PUT gives up once: the market's target stands, and
+    the next tick's ``reconcile_targets`` moves the workload onto it."""
+    from edl_tpu_torch.cluster.cluster import ParallelismUpdateError
+
+    ctrl, kube, coords, lane = _market_controller()
+    real, fails = ctrl.cluster.update_parallelism, [ParallelismUpdateError("conflict storm")]
+
+    def flaky(job, n):
+        if fails:
+            raise fails.pop()
+        return real(job, n)
+
+    ctrl.cluster.update_parallelism = flaky
+    lane.required = 2
+    ctrl.autoscaler.run_once()  # the market alone: the PUT after the drain fails
+    assert _lo_view(ctrl, kube, coords) == (1, 2, 2)
+    ctrl.run_once()
+    assert _lo_view(ctrl, kube, coords) == (1, 1, 1)
+    ctrl.run_once()
+    assert _lo_view(ctrl, kube, coords) == (1, 1, 1)
 
 
 def test_a_refused_cr_beside_a_running_job_does_not_stop_the_watch():
-    """CRs the port refuses (a mesh layout, a second prioritized job)
+    """CRs the port refuses (a mesh layout, a shard-only checkpoint)
     sit beside a running job: the watch records each refusal on its CR
     and goes on, the running job still grows and reaches Succeed through
     its coordinator, a refused CR is not retried until its spec changes,
@@ -285,13 +474,13 @@ def test_a_refused_cr_beside_a_running_job_does_not_stop_the_watch():
             j.name, port_coord.LocalCoordinator(target_world=1, max_world=4))))
     crs = {"a": tpu_to_gpu(_manifest("a", 1, 4, "v5e-1", priority=1)),
            "mesh": tpu_to_gpu(_manifest("mesh", 1, 2, "v5e-4")),
-           "hi": tpu_to_gpu(_manifest("hi", 1, 2, "v5e-1", priority=2))}
+           "hi": tpu_to_gpu(_manifest("hi", 1, 2, "v5e-1", priority=2, shard_only=True))}
     crs["mesh"]["spec"]["trainer"]["parallelism"] = {"fsdp": 2}
     watcher = TrainingJobWatcher(lambda: list(crs.values()), ctrl)
     assert watcher.poll_once() == 3
     assert sorted(ctrl.jobs) == ["a"]
     assert pushed["mesh"]["state"] == "Failed" and "ROADMAP A-8" in pushed["mesh"]["message"]
-    assert pushed["hi"]["state"] == "Failed" and "ROADMAP A-4" in pushed["hi"]["message"]
+    assert pushed["hi"]["state"] == "Failed" and "ROADMAP A-7" in pushed["hi"]["message"]
     ctrl.run_once()
     assert kube.get_workload("a-trainer").parallelism == 4
     assert watcher.poll_once() == 0  # refused CRs wait for a new spec
@@ -302,7 +491,7 @@ def test_a_refused_cr_beside_a_running_job_does_not_stop_the_watch():
     coords["a"].report_complete(step=40)
     ctrl.run_once()
     assert ctrl.jobs["a"].status.state.value == "Succeed"
-    crs["hi"]["spec"]["priority"] = 0  # the fixed CR is added
+    crs["hi"]["spec"]["shard_only"] = False  # the fixed CR is added
     assert watcher.poll_once() == 1
     assert sorted(ctrl.jobs) == ["a", "hi"] and kube.get_workload("hi-trainer") is not None
 

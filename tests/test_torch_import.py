@@ -55,16 +55,23 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "from edl_tpu_torch.autoscaler import Autoscaler, scale_all_jobs_dry_run\n"
         "from edl_tpu_torch.controller import Controller, JobParser, pod_env\n"
         "from edl_tpu_torch.cli import build_parser, main\n"
+        "for n in FLEET_MARKET:\n"
+        "    assert n in names, n\n"
+        "from edl_tpu_torch.fleet import (Arbitration, Bid, ChipInventory, FleetArbiter,\n"
+        "    ServingBidder, TrainingBidder, arbitrate, attach_fleet)\n"
+        "from edl_tpu_torch.autoscaler import (ServingLane, attach_serving_lane,\n"
+        "    kube_replica_glue, post_drain)\n"
+        "from edl_tpu_torch.cli import cmd_fleet\n"
         "print(len(names))\n"
     )
-    code = f"CONTROL_PLANE = {CONTROL_PLANE!r}\n" + code
+    code = f"CONTROL_PLANE = {CONTROL_PLANE!r}\nFLEET_MARKET = {FLEET_MARKET!r}\n" + code
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=str(ROOT), env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 21 + len(CONTROL_PLANE)
+    assert int(r.stdout.strip().splitlines()[-1]) >= 21 + len(CONTROL_PLANE) + len(FLEET_MARKET)
 
 
 #: the control plane's modules (resource, cluster, autoscaler,
@@ -78,6 +85,12 @@ CONTROL_PLANE = (
     "edl_tpu_torch.controller.jobparser", "edl_tpu_torch.controller.lifecycle",
     "edl_tpu_torch.controller.watch", "edl_tpu_torch.controller.controller",
     "edl_tpu_torch.controller.deploy", "edl_tpu_torch.cli",
+)
+
+#: the GPU market and the serving lane
+FLEET_MARKET = (
+    "edl_tpu_torch.fleet", "edl_tpu_torch.fleet.inventory", "edl_tpu_torch.fleet.bidders",
+    "edl_tpu_torch.fleet.arbiter", "edl_tpu_torch.autoscaler.serving",
 )
 
 

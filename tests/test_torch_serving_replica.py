@@ -96,14 +96,15 @@ def _served_equals(engine, params):
 
 
 def test_trainer_spill_loads_into_the_engine(trained, tmp_path):
-    with telemetry.scoped():
+    with telemetry.scoped() as (_, rec):
         _spill(trained["ckpts"][2], tmp_path)
         eng = _engine(trained["model"], HostDRAMStore(spill_dir=str(tmp_path)))
         assert not eng.ready
         assert eng.load()
         assert eng.weights_step == 2 and eng.weights_generation == 1
         _served_equals(eng, trained["params"][2])
-        assert eng.swap_events[-1]["kind"] == "serve.swap"
+        swap = [e for e in rec.events() if e.kind.startswith("serve.swap")][-1]
+        assert swap.kind == "serve.swap" and swap.data == {"step": 2, "initial": True}
         # an empty store and no spill dir: nothing to serve
         assert not _engine(trained["model"], HostDRAMStore()).load()
 
@@ -131,7 +132,7 @@ def test_refresh_swaps_to_newer_dram_and_disk_checkpoints(trained, tmp_path):
 
 
 def test_torn_candidate_rejected_once_old_weights_keep_serving(trained):
-    with telemetry.scoped() as (reg, _):
+    with telemetry.scoped() as (reg, rec):
         store = HostDRAMStore()
         store.put(trained["ckpts"][2])
         eng = _engine(trained["model"], store)
@@ -144,7 +145,7 @@ def test_torn_candidate_rejected_once_old_weights_keep_serving(trained):
         for _ in range(4):  # four polls, one torn candidate
             assert not eng.refresh()
         assert reg.counter("edl_serve_swap_rejected_total").value() == 1
-        assert [e["kind"] for e in eng.swap_events].count("serve.swap.rejected") == 1
+        assert [e.kind for e in rec.events()].count("serve.swap.rejected") == 1
         assert eng.weights_step == 2
         _served_equals(eng, trained["params"][2])
         fresh = dataclasses.replace(good, step=5, leaves=[x.copy() for x in good.leaves])
@@ -393,3 +394,51 @@ def test_serve_run_from_env_over_http_coordinator(trained, tmp_path, monkeypatch
         finally:
             replica.stop()
             cserver.stop()
+
+
+def test_swap_and_retry_reach_the_coordinator_merged_telemetry(trained):
+    """The replica's hot swap (``serve.swap``) and its coordinator
+    client's absorbed transient failure (``retry``) are journaled in the
+    flight recorder, and one report carries both into the events of the
+    coordinator's merged ``/telemetry``."""
+    import urllib.error
+
+    from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+
+    coord = LocalCoordinator(target_world=1, max_world=2)
+    cserver = CoordinatorServer(coord, host="127.0.0.1", port=0).start(evict=False)
+    with telemetry.scoped():
+        store = HostDRAMStore()
+        store.put(trained["ckpts"][2])
+        eng = _engine(trained["model"], store)
+        assert eng.load()
+        store.put(trained["ckpts"][4])
+        assert eng.refresh() and eng.weights_step == 4
+        client = HTTPCoordinator(f"127.0.0.1:{cserver.port}", retry_base_delay=0.01)
+        real_open, faults = client._open, [urllib.error.URLError("connection reset")]
+
+        def flaky_open(req):
+            if faults:
+                raise faults.pop()
+            return real_open(req)
+
+        client._open = flaky_open
+        server = ServingServer(ContinuousBatcher(eng), port=0)
+        rep = ServingReplica(eng, server=server, coordinator=client, replica_id="c4-a",
+                             address=f"127.0.0.1:{server.port}", heartbeat_interval=60.0,
+                             telemetry_interval=0,
+                             gen_batcher=TokenContinuousBatcher(eng, refresh=False)).start()
+        try:
+            rep.tick()
+            events = HTTPCoordinator(f"127.0.0.1:{cserver.port}").telemetry()["events"]
+        finally:
+            rep.stop()
+            cserver.stop()
+    mine = [e for e in events if e["data"].get("origin") == "c4-a"]
+    swaps = [e["data"] for e in mine if e["kind"] == "serve.swap"]
+    # the engine's load and swap, then the replica's own load at start
+    assert [(s["step"], s.get("initial"), s.get("from_step")) for s in swaps] == [
+        (2, True, None), (4, None, 2), (4, True, None)]
+    retries = [e["data"] for e in mine if e["kind"] == "retry"]
+    assert retries and retries[0]["op"] == "coordinator request"
+    assert retries[0]["error"] == "URLError"
