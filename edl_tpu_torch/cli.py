@@ -1,5 +1,6 @@
 """L5 CLI (counterpart of ``edl_tpu/cli.py``): submit / list / kill /
-manifests / crd / deploy / local-run / local-sim / controller.
+manifests / crd / deploy / local-run / local-sim / controller / fleet /
+ingest.
 
 The reference had no CLI of its own — users went through the external
 ``paddlecloud`` client/server, which also created the k8s objects
@@ -19,9 +20,11 @@ This CLI subsumes that role:
 - ``controller``  the control-plane daemon against a cluster
 - ``fleet``       one table over every GPU-market bidder's coordinator
 
-Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``ingest``,
-``metrics``, ``route``, ``serve`` and ``trace`` are not ported yet
-(ROADMAP A-6).
+- ``ingest``      stage a real corpus (MNIST IDX files, a token file)
+                  into a file-backed array store for ``--data-dir``
+
+Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``metrics``,
+``route``, ``serve`` and ``trace`` are not ported yet (ROADMAP A-6).
 """
 
 from __future__ import annotations
@@ -129,12 +132,17 @@ def cmd_local_run(args) -> int:
     interval and checkpoint directory, and print the loss summary.
     The JAX CLI's ``--resize-at`` resizes across virtual devices in one
     process; the port's worlds of several members are processes
-    (``python -m edl_tpu_torch.launcher`` behind a coordinator)."""
+    (``python -m edl_tpu_torch.launcher`` behind a coordinator).
+
+    The model is the spec's entrypoint (``mnist`` when it names none,
+    as in the JAX CLI): a registered family, or user code from
+    ``trainer.workspace``."""
     from edl_tpu_torch import launcher
 
     job = _load_job(args.spec)
     et = launcher.run(
-        entrypoint=job.spec.trainer.entrypoint,
+        entrypoint=job.spec.trainer.entrypoint or "mnist",
+        workspace=job.spec.trainer.workspace,
         steps=args.steps,
         global_batch_size=job.spec.global_batch_size,
         checkpoint_interval=job.spec.checkpoint_interval_steps,
@@ -164,6 +172,31 @@ def cmd_local_run(args) -> int:
         "world_sizes_seen": sorted({r.world_size for r in et.history}),
     }
     print(json.dumps(summary, indent=2))
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """Stage a real corpus into a file-backed array store
+    (``edl_tpu_torch.runtime.datasets``): ``ingest mnist`` for IDX
+    image/label pairs, ``ingest tokens`` for tokenized text.  The
+    directory plugs into ``spec.dataset_dir`` / ``local-run
+    --data-dir``; prints its manifest."""
+    import os
+
+    from edl_tpu_torch.runtime.datasets import MANIFEST, ingest_mnist_idx, ingest_tokens
+
+    if args.format == "mnist":
+        if not (args.images and args.labels):
+            print("error: ingest mnist needs --images and --labels", file=sys.stderr)
+            return 2
+        path = ingest_mnist_idx(args.out, args.images, args.labels)
+    else:
+        if not args.tokens:
+            print("error: ingest tokens needs --tokens", file=sys.stderr)
+            return 2
+        path = ingest_tokens(args.out, args.tokens, seq_len=args.seq_len)
+    with open(os.path.join(path, MANIFEST)) as f:
+        print(f.read())
     return 0
 
 
@@ -431,6 +464,19 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     s.set_defaults(fn=cmd_local_run)
+
+    s = sub.add_parser(
+        "ingest", help="stage a real corpus into a file-backed array store"
+    )
+    s.add_argument("format", choices=["mnist", "tokens"])
+    s.add_argument("--out", required=True, help="array-store directory")
+    s.add_argument("--images", default="", help="IDX image file (mnist)")
+    s.add_argument("--labels", default="", help="IDX label file (mnist)")
+    s.add_argument("--tokens", default="", help="token corpus (.npy/.u16/.u32)")
+    s.add_argument(
+        "--seq-len", type=int, default=2048, help="row length (tokens) - 1"
+    )
+    s.set_defaults(fn=cmd_ingest)
 
     s = sub.add_parser(
         "controller", help="run the control-plane daemon against a cluster"

@@ -1,5 +1,6 @@
 """Weights carried across from the JAX package: the flax parameter tree
-of ``TransformerLM`` <-> the port's ``state_dict``.
+of each family -> the port's ``state_dict`` (``TransformerLM`` both
+ways).
 
 The flax tree is taken as nested dicts of numpy arrays (``jax.device_get``
 of the params, or a checkpoint's leaves), so this module imports no JAX.
@@ -14,6 +15,19 @@ Layout map, per layer ``i`` (``layer_i`` -> ``layers.{i}.``):
 - Dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``
 - LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
 - ``embed/embedding`` -> ``embed.weight``; ``pos_embed`` as is.
+
+The other families (``fit_a_line_from_flax``, ``mnist_from_flax``,
+``resnet_from_flax``, ``transformer_from_flax``) use the same maps and:
+
+- Conv ``kernel`` ``[kh, kw, in, out]`` -> ``weight`` ``[out, in, kh,
+  kw]``; GroupNorm ``scale`` -> ``weight``;
+- cross attention's ``query/kernel`` ``[D, H, Dh]`` and ``kv/kernel``
+  ``[D, 2, H, Dh]`` -> ``[H*Dh, D]`` and ``[2*H*Dh, D]``, their biases
+  flattened;
+- ``enc_i`` / ``dec_i`` -> ``encoder.{i}.`` / ``decoder.{i}.``.
+
+A gradient tree has its parameters' structure, so the same functions
+carry JAX gradients across for comparison.
 """
 
 from __future__ import annotations
@@ -38,6 +52,28 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.numpy().copy()
 
 
+def _dense(leaf, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax Dense or DenseGeneral -> ``{prefix.weight [out, in],
+    prefix.bias [out]}``.  The kernel's input axes come first (one of
+    them) and its output axes last, except an attention output's
+    (``prefix`` ending in ``out``: ``[H, Dh, D]``, two input axes)."""
+    k = np.asarray(leaf["kernel"])
+    bias = np.asarray(leaf["bias"]).reshape(-1)
+    k = k.reshape(-1, bias.shape[0]) if prefix.endswith("out") else k.reshape(k.shape[0], -1)
+    return {prefix + ".weight": _t(k.T), prefix + ".bias": _t(bias)}
+
+
+def _norm(leaf, prefix: str) -> Dict[str, torch.Tensor]:
+    return {prefix + ".weight": _t(leaf["scale"]), prefix + ".bias": _t(leaf["bias"])}
+
+
+def _conv(leaf, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {prefix + ".weight": _t(np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1)))}
+    if "bias" in leaf:
+        out[prefix + ".bias"] = _t(leaf["bias"])
+    return out
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax ``TransformerLM`` params tree -> the port's state_dict
     (same dtype as the tree's leaves)."""
@@ -49,20 +85,13 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     while f"layer_{i}" in tree:
         lp, p = tree[f"layer_{i}"], f"layers.{i}."
         for ln in _LNS:
-            sd[p + ln + ".weight"] = _t(lp[ln]["scale"])
-            sd[p + ln + ".bias"] = _t(lp[ln]["bias"])
-        qkv = np.asarray(lp["attn"]["qkv"]["kernel"])
-        sd[p + "attn.qkv.weight"] = _t(qkv.reshape(qkv.shape[0], -1).T)
-        sd[p + "attn.qkv.bias"] = _t(np.asarray(lp["attn"]["qkv"]["bias"]).reshape(-1))
-        out = np.asarray(lp["attn"]["out"]["kernel"])
-        sd[p + "attn.out.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
-        sd[p + "attn.out.bias"] = _t(lp["attn"]["out"]["bias"])
+            sd.update(_norm(lp[ln], p + ln))
+        for name in ("qkv", "out"):
+            sd.update(_dense(lp["attn"][name], p + "attn." + name))
         for name in _DENSE:
-            sd[p + name + ".weight"] = _t(np.asarray(lp[name]["kernel"]).T)
-            sd[p + name + ".bias"] = _t(lp[name]["bias"])
+            sd.update(_dense(lp[name], p + name))
         i += 1
-    sd["ln_f.weight"] = _t(tree["ln_f"]["scale"])
-    sd["ln_f.bias"] = _t(tree["ln_f"]["bias"])
+    sd.update(_norm(tree["ln_f"], "ln_f"))
     return sd
 
 
@@ -102,4 +131,61 @@ def flax_from_params(state_dict: Dict[str, torch.Tensor], num_heads: int) -> Dic
     return tree
 
 
-__all__ = ["flax_from_params", "params_from_flax"]
+def fit_a_line_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"w", "b"}`` as they are."""
+    return {"w": _t(tree["w"]), "b": _t(tree["b"])}
+
+
+def mnist_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ConvNet: ``Conv_0``, ``Conv_1``, ``Dense_0``, ``Dense_1``.
+    ``Dense_0``'s rows stay in flax's (h, w, c) order: the port
+    flattens NHWC activations (``models/mnist.py``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("Conv_0", "Conv_1"):
+        sd.update(_conv(tree[name], name))
+    for name in ("Dense_0", "Dense_1"):
+        sd.update(_dense(tree[name], name))
+    return sd
+
+
+def resnet_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``stem``, ``stem_norm``, every ``stage{i}_block{j}`` (``conv1-3``,
+    ``norm1-3``, ``proj``, ``norm_proj``) and ``head``."""
+    sd = {**_conv(tree["stem"], "stem"), **_norm(tree["stem_norm"], "stem_norm"),
+          **_dense(tree["head"], "head")}
+    for block, leaves in tree.items():
+        if not block.startswith("stage"):
+            continue
+        for name, leaf in leaves.items():
+            p = f"{block}.{name}"
+            sd.update(_norm(leaf, p) if name.startswith("norm") else _conv(leaf, p))
+    return sd
+
+
+def transformer_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The encoder-decoder: ``embed``, ``pos_embed``, ``enc_i`` ->
+    ``encoder.{i}``, ``dec_i`` -> ``decoder.{i}``, ``ln_out``."""
+    sd = {"embed.weight": _t(tree["embed"]["embedding"]), "pos_embed": _t(tree["pos_embed"]),
+          **_norm(tree["ln_out"], "ln_out")}
+    for layer, leaves in tree.items():
+        for flax_prefix, torch_prefix in (("enc_", "encoder."), ("dec_", "decoder.")):
+            if not layer.startswith(flax_prefix):
+                continue
+            p = torch_prefix + layer[len(flax_prefix):]
+            for name, leaf in leaves.items():
+                if name.startswith("ln_"):
+                    sd.update(_norm(leaf, f"{p}.{name}"))
+                else:  # an attention block or the MLP: Dense layers
+                    for sub, dense in leaf.items():
+                        sd.update(_dense(dense, f"{p}.{name}.{sub}"))
+    return sd
+
+
+__all__ = [
+    "fit_a_line_from_flax",
+    "flax_from_params",
+    "mnist_from_flax",
+    "params_from_flax",
+    "resnet_from_flax",
+    "transformer_from_flax",
+]

@@ -3,7 +3,8 @@
 1. read the ``EDL_*`` env contract (``env_config``),
 2. register with the job coordinator (``EDL_COORDINATOR_ADDR``), or run
    alone with an in-process one,
-3. build the model named by the entrypoint and run the elastic loop,
+3. build the model named by the entrypoint (a registered family, or
+   user code from the workspace) and run the elastic loop,
    each generation's world a fresh ``torch.distributed`` process group
    (``make_world_builder``).
 
@@ -279,11 +280,15 @@ def run(
     lr: float = 1e-3,
     device: DeviceLike = None,
     model_kwargs: Optional[Dict[str, Any]] = None,
+    workspace: str = "",
 ):
-    """Build and run the elastic training loop for a registered model on
-    ``device`` (CUDA unless the caller names another).  Returns the
-    ElasticTrainer (with its history) for inspection.
+    """Build and run the elastic training loop for a model on ``device``
+    (CUDA unless the caller names another).  Returns the ElasticTrainer
+    (with its history) for inspection.
 
+    The model is the registered family named by the entrypoint or, for
+    an unregistered name, the ``build`` of the workspace's model.py
+    (``workspace``, else ``EDL_WORKSPACE``).
     ``model_kwargs``: passed to ``get_model`` (e.g. ``{"tiny": True}``).
     The global batch defaults to 8 rows (one device per process)."""
     from edl_tpu_torch.checkpoint.hostdram import HostDRAMStore
@@ -297,7 +302,11 @@ def run(
     cfg = env_config()
     device = resolve_device(device)
     check_slice_topology(cfg["slice_topology"], device)
-    model = get_model(entrypoint or cfg["entrypoint"] or "transformer_lm", **(model_kwargs or {}))
+    model = get_model(
+        entrypoint or cfg["entrypoint"] or "transformer_lm",
+        workspace=workspace or cfg["workspace"],
+        **(model_kwargs or {}),
+    )
     gbs = global_batch_size or cfg["global_batch_size"] or 8
     pod_address = pod_address or cfg["pod_address"]
     history_file = history_file or cfg["history_file"]
@@ -409,7 +418,8 @@ def run(
 
 def main(argv=None):  # pragma: no cover - process entrypoint
     p = argparse.ArgumentParser(description="edl_tpu_torch trainer launcher")
-    p.add_argument("--entrypoint", default="", help="registered model name")
+    p.add_argument("--entrypoint", default="",
+                   help="registered model name, or user code's with EDL_WORKSPACE")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--coordinator", default="", help="coordinator address")
     p.add_argument(

@@ -5,17 +5,24 @@ name in a registry.  The JAX package's params are a pytree applied by
 ``module.apply``; here the device-resident params are the ``nn.Module``
 itself, built from a ``state_dict``: by ``bind_params`` for serving
 (weights in the compute dtype, no gradients) and by ``train_params``
-for training (float32 parameters, as flax keeps them).  Partition
-rules and workspace loading come with later slices.
+for training (float32 parameters, as flax keeps them).
+
+User code: an entrypoint that is not registered loads from the job's
+workspace (``load_workspace_factory``), the reference's whole trainer
+interface (an opaque entrypoint run from the user's package,
+``pkg/jobparser.go:288-291``).  Partition rules and ``bind_model``'s
+mesh kwargs come with the parallel layouts.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 Batch = Dict[str, Any]
 StateDict = Dict[str, torch.Tensor]
@@ -109,6 +116,18 @@ class ModelDef:
     tokens_per_example: int = 0
 
 
+def materialize(make: Callable[[], nn.Module], state_dict: StateDict, device) -> nn.Module:
+    """The module ``make()`` builds, on ``device`` with ``state_dict``'s
+    weights: built on the meta device and materialized uninitialized,
+    so binding pays no throwaway default init; the load casts each
+    weight to its parameter's dtype."""
+    with torch.device("meta"):
+        module = make()
+    module = module.to_empty(device=device)
+    module.load_state_dict(state_dict)
+    return module
+
+
 _REGISTRY: Dict[str, Callable[..., ModelDef]] = {}
 
 
@@ -120,16 +139,64 @@ def register_model(name: str):
     return deco
 
 
-def get_model(name: str, **kwargs) -> ModelDef:
-    """Build a registered model by entrypoint name."""
+def load_workspace_factory(workspace: str) -> Callable[..., ModelDef]:
+    """Load user training code from ``workspace``/model.py.
+
+    The user-code contract: the workspace directory holds a
+    ``model.py`` exposing ``build(**kwargs) -> ModelDef`` (this
+    package's ``ModelDef``, in PyTorch).  The workspace directory is on
+    ``sys.path`` while ``model.py`` runs, so user code may import its
+    sibling modules."""
+    import importlib.util
+    import sys
+
+    path = os.path.join(workspace, "model.py")
+    if not os.path.isfile(path):
+        raise ValueError(
+            f"workspace {workspace!r} has no model.py (the user-code "
+            "contract: model.py exposing build(**kwargs) -> ModelDef)"
+        )
+    modname = f"_edl_workspace_{abs(hash(os.path.abspath(path)))}"
+    spec = importlib.util.spec_from_file_location(modname, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, workspace)
+    try:
+        sys.modules[modname] = mod
+        spec.loader.exec_module(mod)
+    finally:
+        try:
+            sys.path.remove(workspace)
+        except ValueError:
+            pass
+    build = getattr(mod, "build", None)
+    if not callable(build):
+        raise ValueError(
+            f"{path} defines no callable build(**kwargs) -> ModelDef"
+        )
+    return build
+
+
+def _resolve_factory(name: str, workspace: str = "") -> Callable[..., ModelDef]:
+    """Registry lookup, falling back to the workspace's ``build`` for
+    unregistered entrypoints.  A registered name never loads from the
+    workspace."""
     import edl_tpu_torch.models  # noqa: F401  (register built-ins)
 
     factory = _REGISTRY.get(name)
-    if factory is None:
-        raise ValueError(
-            f"unknown model {name!r}; registered: {sorted(_REGISTRY)}"
-        )
-    model = factory(**kwargs)
+    if factory is not None:
+        return factory
+    if workspace:
+        return load_workspace_factory(workspace)
+    raise ValueError(
+        f"unknown model {name!r}; registered: {sorted(_REGISTRY)} "
+        "(set trainer.workspace to train user code)"
+    )
+
+
+def get_model(name: str, workspace: str = "", **kwargs) -> ModelDef:
+    """Build a model by entrypoint name: a registered family, or, for
+    an unregistered name, the ``build`` of ``workspace``/model.py."""
+    model = _resolve_factory(name, workspace)(**kwargs)
     if not isinstance(model, ModelDef):
         raise ValueError(
             f"model factory for {name!r} returned {type(model).__name__}, "

@@ -38,6 +38,7 @@ from edl_tpu_torch.models.base import (
     DecodeSpec,
     ModelDef,
     StateDict,
+    materialize,
     register_model,
 )
 from edl_tpu_torch.models.decode import LayerKV, greedy_from_features
@@ -227,7 +228,7 @@ def lm_loss_fn(params, batch, generator=None):
     return loss, {"loss": loss, "valid_tokens": valid.sum()}
 
 
-def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+def lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
     """flax's ``lecun_normal``: a normal truncated at two standard
     deviations, scaled to variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -259,7 +260,7 @@ def init_state_dict(vocab: int, d_model: int, d_ff: int, num_layers: int,
             sd[p + ln + ".weight"] = torch.ones(d_model)
             sd[p + ln + ".bias"] = torch.zeros(d_model)
         for name, (out_f, in_f) in dense.items():
-            sd[p + name + ".weight"] = _lecun_normal((out_f, in_f), in_f, g)
+            sd[p + name + ".weight"] = lecun_normal((out_f, in_f), in_f, g)
             sd[p + name + ".bias"] = torch.zeros(out_f)
     sd["ln_f.weight"] = torch.ones(d_model)
     sd["ln_f.bias"] = torch.zeros(d_model)
@@ -329,14 +330,8 @@ def transformer_lm(
         return init_state_dict(vocab, d_model, d_ff, layers, L, g)
 
     def _module(state_dict: StateDict, device, param_dtype) -> TransformerLM:
-        # Built on the meta device and materialized uninitialized on the
-        # target, so binding pays no throwaway default init; the load
-        # casts each weight to its parameter's dtype.
-        with torch.device("meta"):
-            module = TransformerLM(**arch, dtype=dtype, param_dtype=param_dtype)
-        module = module.to_empty(device=device)
-        module.load_state_dict(state_dict)
-        return module
+        return materialize(
+            lambda: TransformerLM(**arch, dtype=dtype, param_dtype=param_dtype), state_dict, device)
 
     def bind_params(state_dict: StateDict, device) -> TransformerLM:
         return _module(state_dict, device, dtype).eval().requires_grad_(False)

@@ -10,10 +10,10 @@ ever paged in — which preserves the (seed, step) -> indices
 determinism the elastic protocol depends on: a resize re-slices the
 same global batch stream whether the bytes live in RAM or on disk.
 
-Everything here reads and writes local files only.  The JAX package's
-corpus ingesters (``read_idx``, ``ingest_mnist_idx``, ``ingest_tokens``,
-behind its ``edl ingest`` command) are not ported yet; a corpus staged
-by them loads here unchanged.
+Everything here reads and writes local files only.  The corpus
+ingesters (``read_idx``, ``ingest_mnist_idx``, ``ingest_tokens``,
+behind the CLI's ``ingest``) write the same stores as the JAX
+package's: a corpus staged by either loads in both.
 """
 
 from __future__ import annotations
@@ -134,6 +134,149 @@ def stage_synthetic(
     full file-backed path (mmap -> fancy-index -> device)."""
     rng = np.random.RandomState(seed)
     return save_array_store(path, model_synth_batch(rng, n_examples), seed=seed)
+
+
+# -- real-corpus ingestion ---------------------------------------------------
+
+#: IDX dtype codes (the MNIST distribution format,
+#: http://yann.lecun.com/exdb/mnist/ — a magic of 0x00 0x00 <dtype>
+#: <ndim>, big-endian uint32 dims, then row-major data).
+_IDX_DTYPES = {
+    0x08: np.uint8,
+    0x09: np.int8,
+    0x0B: np.dtype(">i2"),
+    0x0C: np.dtype(">i4"),
+    0x0D: np.dtype(">f4"),
+    0x0E: np.dtype(">f8"),
+}
+
+
+def read_idx(path: str) -> np.ndarray:
+    """Parse one IDX file (optionally .gz) into a numpy array."""
+    import gzip
+
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 4 or raw[0] != 0 or raw[1] != 0:
+        raise ValueError(f"{path!r} is not an IDX file (bad magic)")
+    code, ndim = raw[2], raw[3]
+    if code not in _IDX_DTYPES:
+        raise ValueError(f"{path!r}: unknown IDX dtype code 0x{code:02x}")
+    dims = np.frombuffer(raw, ">u4", count=ndim, offset=4)
+    dtype = _IDX_DTYPES[code]
+    start = 4 + 4 * ndim
+    want = int(np.prod(dims)) if ndim else 0
+    avail = (len(raw) - start) // np.dtype(dtype).itemsize
+    if avail < want:
+        # Checked up front: frombuffer's own error names no file.
+        raise ValueError(
+            f"{path!r}: truncated IDX payload ({avail} of {want} items)"
+        )
+    data = np.frombuffer(raw, dtype, count=want, offset=start)
+    return data.reshape(tuple(int(d) for d in dims))
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def ingest_mnist_idx(
+    out_path: str, images_path: str, labels_path: str
+) -> str:
+    """Ingest a real MNIST-format corpus (IDX image + label files, the
+    BASELINE config-2 dataset) into an array store matching the
+    ``mnist`` model's batch contract: ``image`` [N, 28, 28, 1] float32
+    in [0, 1], ``label`` [N] int32.  The source files' sha256 checksums
+    land in the manifest's provenance block, so a staged store is
+    auditable back to the exact bytes it came from."""
+    imgs = read_idx(images_path)
+    labs = read_idx(labels_path)
+    if imgs.ndim != 3:
+        raise ValueError(
+            f"images IDX must be [N, rows, cols]; got shape {imgs.shape}"
+        )
+    if labs.ndim != 1 or len(labs) != len(imgs):
+        raise ValueError(
+            f"labels IDX must be [N={len(imgs)}]; got shape {labs.shape}"
+        )
+    image = (imgs.astype(np.float32) / 255.0)[..., None]
+    label = labs.astype(np.int32)
+    return save_array_store(
+        out_path,
+        {"image": image, "label": label},
+        provenance={
+            "format": "mnist-idx",
+            "images": os.path.basename(images_path),
+            "images_sha256": _sha256(images_path),
+            "labels": os.path.basename(labels_path),
+            "labels_sha256": _sha256(labels_path),
+        },
+    )
+
+
+def ingest_tokens(
+    out_path: str, tokens_path: str, seq_len: int, key: str = "tokens"
+) -> str:
+    """Ingest a tokenized text corpus — a flat binary/.npy array of
+    token ids — into fixed-length rows of ``seq_len + 1`` (input +
+    shifted-label convention of the LM families).  Leftover tokens past
+    the last full row are dropped.  Accepts ``.npy`` or raw little-
+    endian uint16/uint32 binary (``.bin`` with dtype inferred from
+    size alignment is ambiguous, so raw files must be ``.u16``/
+    ``.u32``)."""
+    if tokens_path.endswith(".npy"):
+        flat = np.load(tokens_path, mmap_mode="r")
+    elif tokens_path.endswith(".u16"):
+        flat = np.fromfile(tokens_path, "<u2")
+    elif tokens_path.endswith(".u32"):
+        flat = np.fromfile(tokens_path, "<u4")
+    else:
+        raise ValueError(
+            f"unknown token file type {tokens_path!r} (.npy/.u16/.u32)"
+        )
+    if flat.ndim != 1:
+        raise ValueError(f"token corpus must be flat; got {flat.shape}")
+    if not np.issubdtype(flat.dtype, np.integer):
+        raise ValueError(
+            f"token corpus must hold integer ids; got dtype {flat.dtype} "
+            "(a float corpus would silently truncate under astype)"
+        )
+    if flat.size and int(flat.max()) >= 2**31:
+        raise ValueError(
+            "token ids exceed int32 range; they would wrap negative and "
+            "gather garbage embeddings"
+        )
+    if flat.size and int(flat.min()) < 0:
+        raise ValueError(
+            "token corpus contains negative ids (ignore-index sentinels "
+            "like -100?); strip them before staging — a negative gather "
+            "index trains on garbage embedding rows"
+        )
+    row = seq_len + 1
+    n = len(flat) // row
+    if n == 0:
+        raise ValueError(
+            f"corpus has {len(flat)} tokens, fewer than one {row}-token row"
+        )
+    rows = np.asarray(flat[: n * row]).reshape(n, row).astype(np.int32)
+    return save_array_store(
+        out_path,
+        {key: rows},
+        provenance={
+            "format": "tokens",
+            "source": os.path.basename(tokens_path),
+            "source_sha256": _sha256(tokens_path),
+            "seq_len": str(seq_len),
+            "dropped_tokens": str(len(flat) - n * row),
+        },
+    )
 
 
 def resolve_dataset(

@@ -880,7 +880,8 @@ def serve_run(
     """Build and start one checkpoint-backed replica from the arguments
     and the ``EDL_SERVE_*`` pod env contract (``launcher.env_config``):
     a ``HostDRAMStore`` over the durable checkpoint directory, the
-    engine (``DecodeEngine`` for a model with a decode contract), both
+    engine (``DecodeEngine`` for a model with a decode contract; an
+    unregistered entrypoint loads from ``EDL_WORKSPACE``), both
     batchers and the HTTP front, registered with the serving
     coordinator when an address is given.  ``device`` defaults to CUDA
     and raises where there is none.  Returns the started replica; the
@@ -893,7 +894,8 @@ def serve_run(
     from edl_tpu_torch.serving.engine import DecodeEngine, InferenceEngine
 
     cfg = env_config()
-    model = get_model(entrypoint or cfg["entrypoint"] or "transformer_lm", **model_kwargs)
+    model = get_model(entrypoint or cfg["entrypoint"] or "transformer_lm",
+                      workspace=cfg["workspace"], **model_kwargs)
     spill = checkpoint_dir or cfg["checkpoint_dir"]
     store = HostDRAMStore(spill_dir=spill or None)
     max_batch = max_batch or cfg["serve_max_batch"]

@@ -4,8 +4,9 @@
     python -m edl_tpu_torch.tools.profile_training --model longcontext_lm \
         --seq-len 32768 --batch 1 --reps 2
 
-Builds the ``Trainer`` of a full-width LM (``transformer_lm`` by
-default; seeded weights, float32 parameters, bf16 compute, Adam) over
+Builds the ``Trainer`` of a full-width model (``transformer_lm`` by
+default, or another family of ``MODELS``; seeded weights, float32
+parameters, bf16 compute, Adam) over
 ``ShardedDataIterator`` and, after one warm-up step, measures the train
 step as host wall time per step (ending in a synchronize) and under
 ``torch.profiler``: device time per kernel class (the port's kernels
@@ -26,6 +27,10 @@ import torch
 
 from edl_tpu_torch.tools.profile_serving import _device_us
 
+#: the families it profiles (``--model``)
+MODELS = ("transformer_lm", "longcontext_lm", "transformer_base", "resnet50", "mnist",
+          "fit_a_line")
+
 #: H100 SXM dense bf16 peak (NVIDIA data sheet, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 
@@ -41,11 +46,14 @@ def _kernel_class(name: str) -> str:
     for kernel, label in (("xent_fwd", "B4"), ("xent_dy", "B5"), ("xent_de", "B6")):
         if f"{kernel}_kernel" in n:
             return f"{kernel} ({label})"
+    if "conv" in n or "cudnn" in n or "wgrad" in n or "dgrad" in n:
+        return "convolution (cuDNN)"
     if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90")):
         return "matmul (cuBLAS)"
     if "multi_tensor" in n or "adam" in n:
         return "optimizer (Adam)"
-    if "layer_norm" in n or "softmax" in n or "reduce" in n:
+    if any(w in n for w in ("layer_norm", "groupnorm", "group_norm", "moments", "softmax",
+                            "reduce", "pool")):
         return "norm/reduce"
     if "index" in n or "gather" in n or "scatter" in n or "embedding" in n:
         return "gather/scatter"
@@ -56,10 +64,9 @@ def _kernel_class(name: str) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="transformer_lm",
-                   choices=("transformer_lm", "longcontext_lm"))
+    p.add_argument("--model", default="transformer_lm", choices=MODELS)
     p.add_argument("--seq-len", type=int, default=None,
-                   help="tokens per example (the model's default when omitted)")
+                   help="tokens per example of a token model (its default when omitted)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
@@ -76,7 +83,7 @@ def main(argv=None) -> int:
     from edl_tpu_torch.models import get_model
     from edl_tpu_torch.runtime import ShardedDataIterator, Trainer, synthetic_dataset
 
-    model = get_model(args.model, seq_len=args.seq_len)
+    model = get_model(args.model, **({"seq_len": args.seq_len} if args.seq_len else {}))
     trainer = Trainer(model, device="cuda", seed=args.seed)
     state = trainer.init_state()
     it = ShardedDataIterator(
@@ -121,6 +128,7 @@ def main(argv=None) -> int:
         "model": args.model, "batch": args.batch, "seq_len": model.tokens_per_example,
         "host_wall_ms_per_step": wall_ms,
         "tokens_per_s": tokens / (wall_ms * 1e-3),
+        "examples_per_s": args.batch / (wall_ms * 1e-3),
         "mfu": flops / (wall_ms * 1e-3) / PEAK_BF16_FLOPS,
         "device_ms_per_step": device_ms,
         "device_busy_share_of_unprofiled_wall": device_ms / wall_ms,

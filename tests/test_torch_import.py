@@ -62,16 +62,25 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "from edl_tpu_torch.autoscaler import (ServingLane, attach_serving_lane,\n"
         "    kube_replica_glue, post_drain)\n"
         "from edl_tpu_torch.cli import cmd_fleet\n"
+        "for n in MODEL_ZOO:\n"
+        "    assert n in names, n\n"
+        "from edl_tpu_torch.models import get_model, load_workspace_factory, registered_models\n"
+        "zoo = {'fit_a_line', 'mnist', 'resnet50', 'transformer_base'}\n"
+        "assert zoo <= set(registered_models())\n"
+        "from edl_tpu_torch.runtime.datasets import ingest_mnist_idx, ingest_tokens, read_idx\n"
+        "from edl_tpu_torch.cli import cmd_ingest\n"
         "print(len(names))\n"
     )
-    code = f"CONTROL_PLANE = {CONTROL_PLANE!r}\nFLEET_MARKET = {FLEET_MARKET!r}\n" + code
+    code = (f"CONTROL_PLANE = {CONTROL_PLANE!r}\nFLEET_MARKET = {FLEET_MARKET!r}\n"
+            f"MODEL_ZOO = {MODEL_ZOO!r}\n" + code)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=str(ROOT), env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 21 + len(CONTROL_PLANE) + len(FLEET_MARKET)
+    assert int(r.stdout.strip().splitlines()[-1]) >= (
+        21 + len(CONTROL_PLANE) + len(FLEET_MARKET) + len(MODEL_ZOO))
 
 
 #: the control plane's modules (resource, cluster, autoscaler,
@@ -85,6 +94,13 @@ CONTROL_PLANE = (
     "edl_tpu_torch.controller.jobparser", "edl_tpu_torch.controller.lifecycle",
     "edl_tpu_torch.controller.watch", "edl_tpu_torch.controller.controller",
     "edl_tpu_torch.controller.deploy", "edl_tpu_torch.cli",
+)
+
+#: the model zoo's families (BASELINE configs 1-4) and their layers
+MODEL_ZOO = (
+    "edl_tpu_torch.models.fit_a_line", "edl_tpu_torch.models.mnist",
+    "edl_tpu_torch.models.resnet", "edl_tpu_torch.models.transformer",
+    "edl_tpu_torch.models.layers",
 )
 
 #: the GPU market and the serving lane
