@@ -6,9 +6,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port's serving and training paths, its elastic runtime,
-its serving fleet, its control plane, its fleet market and its model
-zoo on the card and exits non-zero on the first failure.  Phases, in
-order:
+its serving fleet, its control plane, its fleet market, its model zoo
+and its observability (flight journal, profile windows, merged
+timeline) on the card and exits non-zero on the first failure.  Phases,
+in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -220,10 +221,39 @@ order:
     loopback: 16 concurrent ``POST /predict``, the replies equal to
     ``predict_fn`` run directly (labels and tokens past the margin rule,
     ``pred`` to bf16 tolerance); the /predict p50 and p95.
-13. **Kernels line** — one JSON object listing every ported kernel with
+13. **Observability** — phase 7's configuration through
+    ``ElasticTrainer`` behind an in-process ``CoordinatorServer``,
+    reached over HTTP as a pod reaches it, with the flight recorder's
+    JSONL spill on, the launcher's world builder (each generation's
+    world formed as one NCCL rank: the process answers for both members
+    of the retargeted world), checkpoint interval 4, and profile
+    windows of 3 steps (``EDL_PROFILE_DIR``, ``EDL_PROFILE_AT_STEP=1``,
+    ``EDL_PROFILE_EACH_RESIZE=1``).  After step 5 a prewarm hint and a
+    retarget to 2 go out under one trace id; 10 steps, then 3 timed
+    with no window.  Checks: the loss stream equals phase 7's run A bit
+    for bit; 12/12/1/1/1 launches a step; no pinned allocation in the
+    resize; the coordinator's journal holds ``coord.plan``,
+    ``coord.world_acked``, ``resize``, ``checkpoint.save``,
+    ``step.first``, ``prewarm.hint`` and two ``profile.window`` pairs
+    opening at steps 1 and 5, every kind registered; the member's
+    events from the hint to ``step.first`` all carry the trace id, the
+    resize with flush, world formation and restore timings; each
+    window's file annotates exactly its 3 steps and its device lane
+    holds 3 x 12 ``flash_fwd_kernel``, 3 x 12 ``flash_bwd_dkdv_kernel``
+    and 3 each of ``xent_fwd_kernel``, ``xent_dy_kernel`` and
+    ``xent_de_kernel``, what the wrappers counted while it was open;
+    ``edl trace <coordinator> --summary`` writes a trace whose
+    traced ``resize`` slice holds its three phase slices and names the
+    trace id's chain once; the spill, the coordinator's lane for the
+    member and the member's ring hold the same events, and ``edl trace
+    --journal`` on the spill renders the live lane's slices; ``edl
+    metrics --prom`` shows ``edl_flight_spill_dropped_total``.  Prints
+    the step ms with a window open and with none, the resize's phase
+    seconds as the timeline reads them, and the trace files' bytes.
+14. **Kernels line** — one JSON object listing every ported kernel with
     its launches on the main path, error, times, bound, the shape timed,
     the achieved TFLOP/s and the share of the bound.
-14. **Last line** — ``{"ok": true, "device": {...}}``.
+15. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -1042,7 +1072,8 @@ def phase_long_kernels():
     bound_ms, bound_by, flops, nbytes = flash_bound_ms(b, t, h, d, True)
     fwd_timing = {
         "name": "flash_fwd", "shape": [b, t, h, d], "causal": True,
-        "kernel_ms": fwd_ms, "plain_ms": fwd_plain_ms, "plain": "flash_attention_plain head by head",
+        "kernel_ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "plain": "flash_attention_plain head by head",
         "library_ms": sdpa_fwd_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes, "tflops": flops / (fwd_ms * 1e-3) / 1e12,
     }
@@ -2450,7 +2481,9 @@ def _stream_ok(res, new_tokens, what):
         fail(f"{what}: the stream failed: status {res['status']}, {res.get('error')}, "
              f"last lines {[ev for _, ev in res['lines'][-2:]]}")
     if res["restarts"] or res["indices"] != list(range(new_tokens)):
-        fail(f"{what}: {res['restarts']} restart lines, token indices {res['indices']}")
+        fail(f"{what}: {res['restarts']} restart lines "
+             f"{[(i, ev) for i, (_, ev) in enumerate(res['lines']) if ev.get('restart')]}, "
+             f"token indices {res['indices']}, done line {res['done']}")
     if res["done"]["tokens"] != res["tokens"]:
         fail(f"{what}: the done line's tokens differ from the streamed ones")
 
@@ -2486,16 +2519,24 @@ def _record_admissions(replica, log_to):
     gen.submit_generate = submit
 
 
-def _wait_route(router_base, rid, address=None, timeout=30):
-    """Until the router's table shows ``rid`` healthy (at ``address``)."""
+def _wait_route(router_base, rid, address=None, timeout=30, first=False):
+    """Until the router's table shows ``rid`` healthy (at ``address``);
+    with ``first``, until the router also orders it before every other
+    replica that can generate (its least-loaded order: by score, then
+    by name)."""
     deadline = time.monotonic() + timeout
     while True:
-        for r in _get(router_base + "/routes")["replicas"]:
+        rows = _get(router_base + "/routes")["replicas"]
+        for r in rows:
             if r["replica"] == rid and r["health"] == "healthy" and (
                     address is None or r["address"] == address):
-                return r
+                order = sorted((x for x in rows if x["health"] == "healthy" and x["can_generate"]),
+                               key=lambda x: (x["score"], x["replica"]))
+                if not first or order[0]["replica"] == rid:
+                    return r
         if time.monotonic() > deadline:
-            fail(f"the router never listed {rid} healthy at {address}")
+            fail(f"the router never listed {rid} healthy at {address}"
+                 f"{' and first' if first else ''}: {rows}")
         time.sleep(0.02)
 
 
@@ -2843,7 +2884,11 @@ def phase_serving_fleet(card: str):
         gb = reps["fleet-b"].gen_batcher
         with gb.frozen():
             gb.chunked_prefill = False
-        _wait_route(rbase, "fleet-a", reps["fleet-a"].address)
+        # the router's view of the fresh A keeps the dead A's load
+        # figures until its first probe: stream once the router orders
+        # A first
+        _wait_route(rbase, "fleet-a", reps["fleet-a"].address, first=True)
+        routes_before = _get(rbase + "/routes")["replicas"]
         rprompt = rng.randint(3, vocab, size=FLEET_REDRIVE_PROMPT)
         kill = {}
 
@@ -2861,7 +2906,8 @@ def phase_serving_fleet(card: str):
         _stream_ok(redriven, FLEET_REDRIVE_NEW, "fleet re-drive")
         legs = [a for a in admitted if a[2] == tuple(rprompt[:4])]
         if [a[0] for a in legs] != ["fleet-a", "fleet-b"]:
-            fail(f"fleet re-drive: admissions {legs}, want fleet-a then fleet-b")
+            fail(f"fleet re-drive: admissions {legs}, want fleet-a then fleet-b; the router's "
+                 f"table just before the stream: {routes_before}")
         resumed_len = legs[-1][1]
         if redriven["done"].get("redriven") != 1 or resumed_len <= len(rprompt):
             fail(f"fleet re-drive: done line {redriven['done']}, resumed prompt {resumed_len}")
@@ -2874,6 +2920,7 @@ def phase_serving_fleet(card: str):
             "resumed_prompt": resumed_len, "tokens_before_kill": len(t_before),
             "gap_ms": (t_after[0] - t_before[-1]) * 1e3,
             "launches_a_prefill": kill["before"], "launches_resumed_leg": leg,
+            "routes_before": routes_before,
             "recompute": _recompute_check(eb, [rprompt], [redriven["tokens"]]),
         }
         out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
@@ -3004,7 +3051,8 @@ def _cp_big_tick() -> dict:
     for k in range(CP_BIG_JOBS):
         gpus = (1, 8, 16)[k % 3]
         job = TrainingJob.from_manifest({
-            "apiVersion": "edl.tpu.dev/v1", "kind": "TrainingJob", "metadata": {"name": f"j{k:02d}"},
+            "apiVersion": "edl.tpu.dev/v1", "kind": "TrainingJob",
+            "metadata": {"name": f"j{k:02d}"},
             "spec": {"fault_tolerant": True, "trainer": {
                 "min_instance": 1, "max_instance": 4, "slice_topology": f"h100-{gpus}",
                 "resources": {"requests": {"cpu": "8", "memory": "64Gi"}}}}}).validate()
@@ -3175,7 +3223,8 @@ def phase_control_plane(card: str):
                 prewarm_alone = {"prewarm": plan.prewarm, "members": coord.members(),
                                  "world_size": plan.world_size, "generation": plan.generation}
             # lm-b arrives once the trainer steps (its first harvested step)
-            if lm_b is None and parallelism == [1, 2] and any("step" in x for x in _cp_history(hist)):
+            if (lm_b is None and parallelism == [1, 2]
+                    and any("step" in x for x in _cp_history(hist))):
                 lm_b = ctrl.on_add(TrainingJob.from_yaml(
                     _cp_job_yaml("lm-b", 1, 1, servers["lm-b"].port)))
                 t_lm_b = time.perf_counter()
@@ -3202,14 +3251,16 @@ def phase_control_plane(card: str):
         if parallelism != [1, 2, 1]:
             fail(f"lm's parallelism went {parallelism}, want 1 -> 2 -> 1")
         if not prewarm_alone or prewarm_alone["members"] != [pod.name]:
-            fail(f"the plan never carried prewarm 2 with the trainer its only member: {prewarm_alone}")
+            fail("the plan never carried prewarm 2 with the trainer its only member: "
+                 f"{prewarm_alone}")
         b_pods = [(p.phase, p.node) for p in kube.list_pods() if p.job_name == "lm-b"]
         if b_pods != [("Running", "gpu-1")]:
             fail(f"lm-b's pods are {b_pods}, want one Running on gpu-1")
         sims = [p.name for p in kube.list_pods() if p.job_name == "lm" and p.node == "gpu-1"]
         if sims:
             fail(f"the simulated lm pod on gpu-1 survived the shed: {sims}")
-        if kube.get_workload("lm-coordinator") is not None or kube.get_workload("lm-trainer") is None:
+        if (kube.get_workload("lm-coordinator") is not None
+                or kube.get_workload("lm-trainer") is None):
             fail("Succeed must delete lm's coordinator workload and keep its trainer workload")
         grow = [t for name, n, t in put_at if name == "lm" and n == 2]
         retarget = [t for n, t in target_at if n == 2]
@@ -3882,7 +3933,8 @@ def _fleet_market(card: str):
         with contextlib.redirect_stdout(text):
             if cli.main(["fleet", "--job", f"lo=127.0.0.1:{servers['lo'].port},priority=1",
                          "--job", f"hi=127.0.0.1:{servers['hi'].port},priority=10",
-                         "--serve", f"api={serve_addr},priority=100", "--chips", "4", "--json"]) != 0:
+                         "--serve", f"api={serve_addr},priority=100", "--chips", "4",
+                         "--json"]) != 0:
                 fail("fleet market: the fleet command failed")
         fleet_cmd = json.loads(text.getvalue())
 
@@ -3984,7 +4036,8 @@ def _fleet_market(card: str):
                 shed[0].get("migrate_to") != reps["api-a"].address):
             fail(f"fleet market: the shed's drain {shed}")
         evs = telemetry.get_recorder().events()
-        steers = [e.seq for e in evs if e.kind == "route.steer" and e.data.get("replica") == "api-b"]
+        steers = [e.seq for e in evs
+                  if e.kind == "route.steer" and e.data.get("replica") == "api-b"]
         starts = [e.seq for e in evs if e.kind == "serve.drain"
                   and e.data.get("replica") == "api-b" and e.data.get("phase") == "start"]
         if not (steers and starts and steers[0] < starts[0]) or retries:
@@ -4453,6 +4506,344 @@ def phase_model_zoo(card: str) -> dict:
 # -- main -----------------------------------------------------------------
 
 
+# -- phase 13 -------------------------------------------------------------
+
+#: the observability run: steps, the retarget's step, the profile
+#: windows' first step and length
+OBS_STEPS = 10
+#: steps timed after the run with no window open (drained to drained,
+#: as a window's steps are)
+OBS_PLAIN_STEPS = 3
+OBS_RETARGET_AT = 5
+OBS_WINDOW_AT = 1
+OBS_WINDOW_STEPS = 3
+#: each wrapper's kernel on the device lane, by its ``__global__``
+#: symbol: one launch of the wrapper launches it once (B2 also
+#: launches its delta and dQ kernels)
+OBS_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "flash_bwd_dkdv_kernel",
+               "xent_fwd": "xent_fwd_kernel", "xent_dy": "xent_dy_kernel",
+               "xent_de": "xent_de_kernel"}
+
+
+def _one_rank_worlds(trainer_id, device):
+    """The launcher's world builder for a process that answers for every
+    member of its plan: each generation's world is formed (torn down,
+    initialized, a gloo group beside it) as one rank, the most one card
+    holds."""
+    import dataclasses
+
+    from edl_tpu_torch import launcher
+
+    inner = launcher.make_world_builder(trainer_id, device)
+
+    def build(plan):
+        if trainer_id not in plan.members:
+            return inner(plan)
+        i = plan.members.index(trainer_id)
+        return inner(dataclasses.replace(plan, members=(trainer_id,),
+                                         addresses=(plan.addresses[i],), world_size=1))
+
+    build.teardown = inner.teardown
+    build.leak_dead_world = inner.leak_dead_world
+    return build
+
+
+def _window_trace(path):
+    """A profiler window's Chrome trace: its ``train#<step>`` steps, its
+    device kernels counted by wrapper symbol, and the same per step
+    where the device lane carries the steps' ranges
+    (``gpu_user_annotation``), else None.  A step's range on the device
+    spans the kernels its host range launched, the forward; its
+    backward runs on autograd's thread, so a step owns every kernel
+    from its range's start to the next step's."""
+    doc = json.loads(open(path).read())
+    events = doc["traceEvents"]
+    steps = sorted({int(e["name"][len("train#"):]) for e in events
+                    if str(e.get("name", "")).startswith("train#")})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def count(ks):
+        return {w: sum(1 for k in ks if sym in k["name"]) for w, sym in OBS_SYMBOLS.items()}
+
+    ranges = [e for e in events if e.get("cat") == "gpu_user_annotation"
+              and str(e.get("name", "")).startswith("train#")]
+    per_step = None
+    if ranges:
+        ranges.sort(key=lambda r: r["ts"])
+        ends = [r["ts"] for r in ranges[1:]] + [float("inf")]
+        per_step = {r["name"]: count([k for k in kernels if r["ts"] <= k["ts"] < end])
+                    for r, end in zip(ranges, ends)}
+    return steps, count(kernels), len(kernels), per_step
+
+
+def _cli(*argv):
+    """``python -m edl_tpu_torch.cli <argv>`` in this process: its exit
+    code and what it printed."""
+    import contextlib
+    import io
+
+    from edl_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return rc, buf.getvalue()
+
+
+def phase_observability(card: str, ref_losses=None) -> dict:
+    """Full-width transformer_lm through ElasticTrainer behind the HTTP
+    coordinator, with the flight recorder's spill, two profile windows
+    and a traced retarget; the journal, the windows and the CLI's
+    ``trace`` and ``metrics`` read back."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch import telemetry
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.checkpoint.hostdram import PINNED
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        ElasticTrainer,
+        LocalCoordinator,
+        ShardedDataIterator,
+        synthetic_dataset,
+    )
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer, HTTPCoordinator
+    from edl_tpu_torch.telemetry import KNOWN_EVENT_KINDS
+    from edl_tpu_torch.telemetry.trace import load_journal, member_streams, new_trace_id
+
+    t_phase = time.perf_counter()
+    model = get_model("transformer_lm")  # full width: bf16 compute, f32 params
+    layers = model.decode.layers
+    want = {"flash_fwd": layers, "flash_bwd": layers, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    it = ShardedDataIterator(
+        synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH, seed=SEED)
+    tmp = tempfile.mkdtemp(prefix="edl-observability-")
+    spill = os.path.join(tmp, "tr0.jsonl")
+    env = {"EDL_PROFILE_DIR": os.path.join(tmp, "profile"),
+           "EDL_PROFILE_STEPS": str(OBS_WINDOW_STEPS),
+           "EDL_PROFILE_AT_STEP": str(OBS_WINDOW_AT), "EDL_PROFILE_EACH_RESIZE": "1"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    out = {"card": card, "model": "transformer_lm", "batch": TRAIN_BATCH, "steps": OBS_STEPS}
+    trace_id = new_trace_id()
+    server = et = None
+    try:
+        os.environ.update(env)
+        with telemetry.scoped() as (_, rec):
+            rec.spill_to(spill)
+            coord = LocalCoordinator(target_world=1, max_world=2)
+            server = CoordinatorServer(coord, host="127.0.0.1", port=0).start(evict=False)
+            addr = f"127.0.0.1:{server.port}"
+            client = HTTPCoordinator(addr)
+            et = ElasticTrainer(model, it, client, store=HostDRAMStore(), lr=TRAIN_LR,
+                                device="cuda", checkpoint_interval=4, seed=SEED,
+                                world_builder=_one_rank_worlds("tr0", "cuda"))
+            et.heartbeat_ids = ["tr0", "tr1"]
+            et.register_address = f"127.0.0.1:{_free_port()}"
+            et.telemetry_interval = 0.5
+            client.register("tr0", address=et.register_address)
+            client.register("tr1", address=f"127.0.0.1:{_free_port()}")  # standby
+            # each window: the wrappers' launches while it was open, and
+            # its wall time from open to its last step drained
+            marks, window_s = [], []
+            prof = et.profiler
+            real_start, real_stop = prof.maybe_start, prof.stop
+
+            def start(step=None):
+                was = prof.tracing
+                real_start(step)
+                if prof.tracing and not was:
+                    marks.append(_all_launches())
+                    window_s.append(time.perf_counter())
+
+            def stop():
+                was = prof.tracing
+                if was:
+                    window_s[-1] = time.perf_counter() - window_s[-1]
+                real_stop()
+                if was:
+                    now = _all_launches()
+                    marks[-1] = {k: now[k] - marks[-1][k] for k in now}
+
+            prof.maybe_start, prof.stop = start, stop
+            pinned = {}
+            et.on_resize = lambda ev: pinned.setdefault(ev.generation, PINNED.allocations)
+            _reset_launches()
+            et.run(OBS_RETARGET_AT)
+            # the autoscaler's half: announce, then retarget, under one id
+            client.set_prewarm(2, trace_id=trace_id)
+            et.run(OBS_RETARGET_AT)  # one poll sees the hint; no step runs
+            et.store.wait()
+            allocs = PINNED.allocations
+            client.set_target_world(2, trace_id=trace_id)
+            et.run(OBS_STEPS)
+            et.store.wait()
+            et.checkpoint_interval = 0
+            t0 = time.perf_counter()
+            et.run(OBS_STEPS + OBS_PLAIN_STEPS)
+            plain_s = time.perf_counter() - t0
+            out["steps_dispatched"] = _check_run_launches(et, want, "observability")
+            et.stop_heartbeat()
+            for _ in range(16):  # a report ships 64 events at most
+                if not rec.events_since(et._events_sent_seq):
+                    break
+                et.flush_telemetry()
+            else:
+                fail("observability: the member's journal never reached the coordinator")
+            mine = [e.to_dict() for e in rec.events()]
+            et.world_builder.teardown()
+
+            # -- the loss stream: the profiler changes no math --------------
+            got = {r.step: r.loss for r in et.history}
+            n = OBS_STEPS + OBS_PLAIN_STEPS
+            if sorted(got) != list(range(n)):
+                fail(f"observability: steps {sorted(got)}")
+            out["losses"] = [got[s] for s in range(n)]
+            if ref_losses is not None and out["losses"][:len(ref_losses)] != list(ref_losses):
+                fail(f"observability: losses {out['losses']} are not phase 7's run A "
+                     f"{list(ref_losses)} bit for bit")
+            first_gen = et.resize_events[0].generation
+            retarget = [e for e in et.resize_events if e.generation > first_gen]
+            if len(retarget) != 1 or not retarget[0].graceful:
+                fail(f"observability: resizes {et.resize_events}")
+            out["pinned_allocations_in_resize"] = pinned[retarget[0].generation] - allocs
+            if out["pinned_allocations_in_resize"]:
+                fail(f"observability: the resize allocated {out['pinned_allocations_in_resize']}"
+                     " pinned buffers")
+
+            # -- the journal ------------------------------------------------
+            tel = client.telemetry()
+            journal = tel["events"]
+            kinds = [e["kind"] for e in journal]
+            for k in ("coord.plan", "coord.world_acked", "resize", "checkpoint.save",
+                      "step.first", "prewarm.hint"):
+                if k not in kinds:
+                    fail(f"observability: no {k} in the coordinator's journal {kinds}")
+            unknown = sorted({k for k in kinds if k not in KNOWN_EVENT_KINDS})
+            if unknown:
+                fail(f"observability: unregistered kinds {unknown}")
+            windows = [(e["data"]["phase"], e["data"]["window"], e["step"]) for e in journal
+                       if e["kind"] == "profile.window"]
+            want_windows = [("open", 1, OBS_WINDOW_AT), ("close", 1, -1),
+                            ("open", 2, OBS_RETARGET_AT), ("close", 2, -1)]
+            if [(p, w) for p, w, _ in windows] != [(p, w) for p, w, _ in want_windows] or [
+                    s for p, _, s in windows if p == "open"] != [OBS_WINDOW_AT, OBS_RETARGET_AT]:
+                fail(f"observability: profile windows {windows}")
+            plans = [e for e in journal if e["kind"] == "coord.plan" and e.get("trace") == trace_id]
+            acked = [e for e in journal if e["kind"] == "coord.world_acked"
+                     and e.get("trace") == trace_id]
+            if len(plans) != 1 or len(acked) != 1:
+                fail(f"observability: plans {plans}, acks {acked} under {trace_id}")
+            resize = [e for e in mine if e["kind"] == "resize" and e.get("trace") == trace_id]
+            if len(resize) != 1 or not set(resize[0]["timing"]["phases"]) >= {
+                    "flush", "world_formation", "restore"}:
+                fail(f"observability: the retarget's resize {resize}")
+            # the member's own events from the retarget to its first step
+            traced = [i for i, e in enumerate(mine) if e.get("trace") == trace_id]
+            chain = mine[traced[0]:traced[-1] + 1]
+            if {e.get("trace") for e in chain} != {trace_id} or chain[-1]["kind"] != "step.first":
+                fail("observability: the member's chain "
+                     f"{[(e['kind'], e.get('trace')) for e in chain]}")
+            out["chain"] = [e["kind"] for e in chain]
+            if [e for e in chain if e["kind"] == "checkpoint.save"] == []:
+                fail(f"observability: no flush journaled in the chain {out['chain']}")
+
+            # -- the profile windows ----------------------------------------
+            if len(prof.files) != 2:
+                fail(f"observability: profile files {prof.files}")
+            out["windows"] = []
+            for path, first, counted in zip(prof.files, (OBS_WINDOW_AT, OBS_RETARGET_AT), marks):
+                steps, kernels, n_kernels, per_step = _window_trace(path)
+                if steps != list(range(first, first + OBS_WINDOW_STEPS)):
+                    fail(f"observability: window {path} annotates steps {steps}")
+                per_window = {w: want[w] * OBS_WINDOW_STEPS for w in OBS_SYMBOLS}
+                one_step = {w: want[w] for w in OBS_SYMBOLS}
+                if (kernels != per_window or {w: counted[w] for w in OBS_SYMBOLS} != per_window
+                        or (per_step is not None
+                            and any(c != one_step for c in per_step.values()))):
+                    fail(f"observability: window {path} holds kernels {kernels} (by step "
+                         f"{per_step}), the wrappers counted {counted}, want {per_window}")
+                out["windows"].append({"steps": steps, "kernels": kernels,
+                                       "kernels_by_step": per_step,
+                                       "device_kernels": n_kernels,
+                                       "trace_bytes": os.path.getsize(path)})
+            # wall per step from a drained pipeline to the last step
+            # drained: each window (the profiler's start included, its
+            # export not), and the steps after the run with none open
+            out["step_ms"] = {"window_open": [w * 1e3 / OBS_WINDOW_STEPS for w in window_s],
+                              "no_window": plain_s * 1e3 / OBS_PLAIN_STEPS}
+
+            # -- edl trace against the live coordinator ---------------------
+            live = os.path.join(tmp, "live.json")
+            rc, text = _cli("trace", addr, "--out", live, "--summary")
+            if rc != 0:
+                fail(f"observability: edl trace exited {rc}: {text}")
+            doc = json.loads(open(live).read())
+            slices = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+            (window,) = [e for e in slices if e["name"] == "resize"
+                         and e["args"].get("trace") == trace_id]
+            children = {e["name"]: e for e in slices if e["pid"] == window["pid"]
+                        and e["tid"] == window["tid"] and e["name"].startswith("resize/")
+                        and window["ts"] - 1 <= e["ts"] <= window["ts"] + window["dur"] + 1}
+            if set(children) != {"resize/flush", "resize/world_formation", "resize/restore"}:
+                fail(f"observability: the resize slice's children {sorted(children)}")
+            chain_lines = [ln for ln in text.splitlines() if ln.strip().startswith(trace_id)]
+            if len(chain_lines) != 1:
+                fail(f"observability: edl trace --summary names {trace_id} in {chain_lines}")
+            out["timeline_phase_s"] = {k[len("resize/"):]: v["dur"] / 1e6
+                                       for k, v in children.items()}
+            out["timeline_resize_s"] = window["dur"] / 1e6
+            out["summary_chain"] = chain_lines[0].strip()
+
+            # -- edl trace --journal on the spill ---------------------------
+            spilled = load_journal(spill)
+            lane = member_streams(journal).get("tr0", [])
+
+            def key(e):
+                return (e["kind"], e["step"], e["generation"], e.get("trace", ""), e["wall"])
+
+            if [key(e) for e in spilled] != [key(e) for e in mine] or [
+                    key(e) for e in lane] != [key(e) for e in mine]:
+                fail(f"observability: the spill holds {len(spilled)} events, the coordinator's "
+                     f"lane {len(lane)}, the member's ring {len(mine)}")
+            post = os.path.join(tmp, "journal.json")
+            rc, _ = _cli("trace", "--journal", f"tr0={spill}", "--out", post)
+            shape = [(e["name"], e["ph"], e.get("dur")) for e in json.loads(
+                open(post).read())["traceEvents"] if e["ph"] != "M"]
+            live_shape = [(e["name"], e["ph"], e.get("dur")) for e in doc["traceEvents"]
+                          if e["ph"] != "M" and e["pid"] == window["pid"]]
+            if rc != 0 or shape != live_shape:
+                fail(f"observability: edl trace --journal gave {len(shape)} events, the live "
+                     f"member lane {len(live_shape)}")
+            out["trace_bytes"] = {"live": os.path.getsize(live), "journal": os.path.getsize(post),
+                                  "spill": os.path.getsize(spill)}
+
+            # -- edl metrics --------------------------------------------------
+            rc, prom = _cli("metrics", addr, "--prom")
+            if rc != 0 or "edl_flight_spill_dropped_total" not in prom:
+                fail("observability: edl metrics --prom shows no edl_flight_spill_dropped_total")
+            out["spill_dropped"] = rec.spill_dropped
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del et
+    torch.cuda.empty_cache()
+    out["launches_per_step"] = want
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"observability": out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4471,12 +4862,13 @@ def main() -> int:
     serving = phase_serving()
     training = phase_training()
     long_training = phase_longcontext_training()
-    phase_elastic(card)
+    elastic = phase_elastic(card)
     phase_serving_replica(card)
     phase_serving_fleet(card)
     phase_control_plane(card)
     phase_fleet_market(card)
     phase_model_zoo(card)
+    phase_observability(card, elastic["losses"])
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

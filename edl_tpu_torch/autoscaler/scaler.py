@@ -378,7 +378,7 @@ class Autoscaler:
         import sys
 
         from edl_tpu_torch.cluster.cluster import ParallelismUpdateError
-        from edl_tpu_torch.runtime.coordinator import new_trace_id
+        from edl_tpu_torch.telemetry.trace import new_trace_id
 
         applied: Dict[str, str] = {}
         #: job -> the stop_step the coordinator stamped into the

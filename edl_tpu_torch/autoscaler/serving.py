@@ -422,7 +422,7 @@ class ServingLane:
         trace_id = ""
         drain = None
         if proposed != current:
-            from edl_tpu_torch.runtime.coordinator import new_trace_id
+            from edl_tpu_torch.telemetry.trace import new_trace_id
 
             trace_id = new_trace_id()
             blocked = False

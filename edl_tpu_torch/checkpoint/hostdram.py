@@ -219,6 +219,7 @@ class HostDRAMStore:
         from edl_tpu_torch import telemetry
 
         reg = telemetry.get_registry()
+        self.recorder = telemetry.get_recorder()
         self._m_saves = reg.counter("edl_checkpoint_saves_total")
         self._m_save_bytes = reg.counter("edl_checkpoint_bytes_total")
         self._m_save_seconds = reg.histogram("edl_checkpoint_save_seconds")
@@ -319,6 +320,12 @@ class HostDRAMStore:
             with self._lock:
                 self._inflight_steps.discard(step_val)
             raise
+        # Journaled at submission, on the caller's thread, so the event
+        # order is deterministic; duration and bytes go to the metrics.
+        self.recorder.record(
+            "checkpoint.save", {"step": step_val, "kind": "async"},
+            step=step_val, generation=generation,
+        )
 
         def work():
             try:
@@ -429,6 +436,10 @@ class HostDRAMStore:
         self._m_saves.inc(kind="flush")
         self._m_save_bytes.inc(ckpt.nbytes(), kind="flush")
         self._m_save_seconds.observe(ckpt.save_seconds, kind="flush")
+        self.recorder.record(
+            "checkpoint.save", {"step": step_val, "kind": "flush"},
+            step=step_val, generation=generation,
+        )
 
         def finish():
             t1 = time.perf_counter()

@@ -574,7 +574,7 @@ def stream_restore(
     """``_stream_restore`` + telemetry publication: the engine's final
     stats land in the metrics registry (wire-byte counters, the
     ``edl_transfer_seconds`` histogram), so a resize's transfer cost is
-    visible on ``/metrics``."""
+    visible on ``/metrics``, and in a ``transfer`` flight event."""
     result = _stream_restore(
         fabric,
         template_leaves,
@@ -600,6 +600,21 @@ def stream_restore(
             s.leaves_skipped
         )
     reg.histogram("edl_transfer_seconds").observe(s.seconds)
+    telemetry.get_recorder().record(
+        "transfer",
+        {
+            "mode": s.mode,
+            "source_rank": s.source_rank,
+            "step": s.step,
+            "bytes_scheduled": s.bytes_scheduled,
+            "bytes_sent": s.bytes_sent,
+            "bytes_received": s.bytes_received,
+            "leaves_received": s.leaves_received,
+            "leaves_skipped": s.leaves_skipped,
+        },
+        step=s.step,
+        timing={"seconds": round(s.seconds, 6)},
+    )
     return result
 
 

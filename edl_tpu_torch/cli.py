@@ -1,6 +1,6 @@
 """L5 CLI (counterpart of ``edl_tpu/cli.py``): submit / list / kill /
 manifests / crd / deploy / local-run / local-sim / controller / fleet /
-ingest.
+ingest / metrics / trace.
 
 The reference had no CLI of its own — users went through the external
 ``paddlecloud`` client/server, which also created the k8s objects
@@ -22,9 +22,13 @@ This CLI subsumes that role:
 
 - ``ingest``      stage a real corpus (MNIST IDX files, a token file)
                   into a file-backed array store for ``--data-dir``
+- ``metrics``     a running job's merged metrics and recent flight
+                  events from its coordinator (``--prom``, ``--json``)
+- ``trace``       merge the coordinator's and the members' flight
+                  journals into one clock-aligned Chrome trace
 
-Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``metrics``,
-``route``, ``serve`` and ``trace`` are not ported yet (ROADMAP A-6).
+Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``route`` and
+``serve`` are not ported yet (ROADMAP A-6).
 """
 
 from __future__ import annotations
@@ -299,14 +303,390 @@ def _parse_fleet_member(spec: str):
     return name, url, chips, priority
 
 
+def cmd_metrics(args) -> int:
+    """Pretty-print a running job's merged metrics and recent
+    flight-recorder events from its coordinator (`edl metrics
+    <host:port>`).  ``--prom`` dumps the raw Prometheus exposition
+    (what a scraper sees); ``--json`` dumps the merged telemetry
+    document."""
+    from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+
+    client = HTTPCoordinator(args.url, timeout=args.timeout)
+    if args.prom:
+        print(client.metrics_text(), end="")
+        return 0
+    snap = client.metrics()
+    tel = {}
+    try:
+        tel = client.telemetry()
+    except Exception:
+        pass  # pre-telemetry coordinator: snapshot alone still prints
+    if args.json:
+        print(json.dumps({"coordinator": snap, "telemetry": tel}, indent=2))
+        return 0
+
+    print("coordinator")
+    for k in sorted(snap):
+        print(f"  {k:<24} {snap[k]}")
+    merged = tel.get("merged") or {}
+    rate = tel.get("step_rate")
+    cost = tel.get("resize_cost_seconds")
+    print("goodput")
+    print(f"  {'observed_step_rate':<24} "
+          f"{f'{rate:.3f} steps/s' if rate is not None else 'n/a'}")
+    print(f"  {'resize_cost_seconds':<24} "
+          f"{f'{cost:.3f}' if cost is not None else 'n/a'}")
+    hists_all = merged.get("histograms") or {}
+    gauges_all = merged.get("gauges") or {}
+    counters_all = merged.get("counters") or {}
+    if any(
+        name.startswith("edl_serve_")
+        for section in (hists_all, gauges_all, counters_all)
+        for name in section
+    ):
+        # Serving fleet summary: the request-side signals the serving
+        # lane scales on, pre-digested (p50/p95 from the merged
+        # latency histogram, occupancy mean, requests by status).
+        from edl_tpu_torch.telemetry.aggregate import histogram_quantile
+
+        print("serving")
+        lat = hists_all.get("edl_serve_latency_seconds")
+        for q, tag in ((0.5, "latency_p50"), (0.95, "latency_p95")):
+            v = histogram_quantile(lat, q) if lat else None
+            print(
+                f"  {tag:<24} "
+                f"{f'{v * 1000:.1f} ms' if v is not None else 'n/a'}"
+            )
+        occ = hists_all.get("edl_serve_batch_occupancy") or {}
+        tot = sum(h["count"] for h in occ.values())
+        if tot:
+            mean = sum(h["sum"] for h in occ.values()) / tot
+            print(f"  {'batch_occupancy_mean':<24} {mean:.3f}")
+        depth = gauges_all.get("edl_serve_queue_depth") or {}
+        if depth:
+            print(f"  {'queue_depth_max':<24} {max(depth.values()):g}")
+        wstep = gauges_all.get("edl_serve_weights_step") or {}
+        if wstep:
+            print(f"  {'weights_step':<24} {max(wstep.values()):g}")
+        # the bytes one card holds for the KV pool, and of it in use
+        for gname, tag in (
+            ("edl_serve_kv_pool_bytes_per_device", "kv_pool_bytes/dev"),
+            ("edl_serve_kv_used_bytes_per_device", "kv_used_bytes/dev"),
+        ):
+            g = gauges_all.get(gname) or {}
+            if g:
+                print(f"  {tag:<24} {max(g.values()):g}")
+        # Per-replica drain posture: which replicas are
+        # serving / draining / drained, plus the drain counters — the
+        # operator view of a rolling scale-down.
+        drg = gauges_all.get("edl_serve_draining") or {}
+        _DRAIN_STATES = {0: "serving", 1: "draining", 2: "drained"}
+        for key in sorted(drg):
+            state = _DRAIN_STATES.get(int(drg[key]), "?")
+            print(f"  drain{{{key}}}{'':<8} {state}")
+        drains = counters_all.get("edl_serve_drains_total") or {}
+        if drains:
+            print(
+                f"  {'drains_total':<24} {sum(drains.values()):g}"
+            )
+        dsec = hists_all.get("edl_serve_drain_seconds") or {}
+        dcount = sum(h["count"] for h in dsec.values())
+        if dcount:
+            dsum = sum(h["sum"] for h in dsec.values())
+            print(
+                f"  {'drain_seconds_mean':<24} "
+                f"{dsum / dcount:.3f}"
+            )
+        # Live KV migration counters: sequences drains
+        # handed to survivors instead of waiting out, the KV bytes
+        # that moved, and the re-prefill fallbacks the ladder took.
+        mig = counters_all.get("edl_serve_migrations_total") or {}
+        if mig:
+            print(f"  {'migrations_total':<24} {sum(mig.values()):g}")
+            fb = sum(
+                v for k, v in mig.items() if "outcome=fallback" in k
+            )
+            print(f"  {'migrate_fallbacks':<24} {fb:g}")
+            mb = counters_all.get(
+                "edl_serve_migrations_bytes_total"
+            ) or {}
+            if mb:
+                print(
+                    f"  {'migrated_kv_bytes':<24} {sum(mb.values()):g}"
+                )
+            msec = hists_all.get("edl_serve_migrate_seconds")
+            m95 = histogram_quantile(msec, 0.95) if msec else None
+            print(
+                f"  {'migrate_p95':<24} "
+                f"{f'{m95 * 1000:.1f} ms' if m95 is not None else 'n/a'}"
+            )
+        tok = counters_all.get("edl_serve_tokens_total") or {}
+        if tok:
+            # Decode stats (the token-iteration path): tokens/s is the
+            # decode-iteration cadence the fleet sustained — emitted
+            # tokens over the seconds the inter-token histogram
+            # accumulated (its count/sum), aggregated across replicas.
+            it_h = hists_all.get("edl_serve_intertoken_seconds") or {}
+            it_count = sum(h["count"] for h in it_h.values())
+            it_sum = sum(h["sum"] for h in it_h.values())
+            print(f"  {'tokens_total':<24} {sum(tok.values()):g}")
+            if it_sum > 0:
+                print(
+                    f"  {'decode_tokens_per_s':<24} "
+                    f"{it_count / it_sum:.1f}"
+                )
+            ttft = hists_all.get("edl_serve_ttft_seconds")
+            for q, tag in ((0.5, "ttft_p50"), (0.95, "ttft_p95")):
+                v = histogram_quantile(ttft, q) if ttft else None
+                print(
+                    f"  {tag:<24} "
+                    f"{f'{v * 1000:.1f} ms' if v is not None else 'n/a'}"
+                )
+            it95 = (
+                histogram_quantile(
+                    hists_all.get("edl_serve_intertoken_seconds"), 0.95
+                )
+                if it_h
+                else None
+            )
+            print(
+                f"  {'intertoken_p95':<24} "
+                f"{f'{it95 * 1000:.2f} ms' if it95 is not None else 'n/a'}"
+            )
+            kv = gauges_all.get("edl_serve_kv_occupancy") or {}
+            if kv:
+                print(
+                    f"  {'kv_slot_occupancy':<24} {max(kv.values()):.3f}"
+                )
+            # Chunked-prefill stats: admission pressure and
+            # the stall it imposed on the running decode batch.
+            chunks = counters_all.get(
+                "edl_serve_prefill_chunks_total"
+            ) or {}
+            if chunks:
+                print(
+                    f"  {'prefill_chunks_total':<24} "
+                    f"{sum(chunks.values()):g}"
+                )
+                ptok = counters_all.get(
+                    "edl_serve_prefill_tokens_total"
+                ) or {}
+                if ptok:
+                    print(
+                        f"  {'prefill_tokens_total':<24} "
+                        f"{sum(ptok.values()):g}"
+                    )
+            pq = gauges_all.get("edl_serve_prefill_queued_tokens") or {}
+            if pq:
+                print(
+                    f"  {'queued_prefill_tokens':<24} "
+                    f"{max(pq.values()):g}"
+                )
+            stall = hists_all.get("edl_serve_prefill_stall_seconds")
+            if stall:
+                s95 = histogram_quantile(stall, 0.95)
+                print(
+                    f"  {'prefill_stall_p95':<24} "
+                    f"{f'{s95 * 1000:.2f} ms' if s95 is not None else 'n/a'}"
+                )
+        # Prefix-cache stats: shared-prefix admission reuse
+        # — how often warm admissions skipped to the first cold block,
+        # and what the retention cost under pressure.
+        phits = counters_all.get("edl_serve_prefix_hits_total") or {}
+        if phits:
+            pmiss = (
+                counters_all.get("edl_serve_prefix_misses_total") or {}
+            )
+            print(f"  {'prefix_hits':<24} {sum(phits.values()):g}")
+            print(f"  {'prefix_misses':<24} {sum(pmiss.values()):g}")
+            ratio = gauges_all.get("edl_serve_prefix_hit_ratio") or {}
+            if ratio:
+                print(
+                    f"  {'prefix_hit_ratio':<24} "
+                    f"{max(ratio.values()):.3f}"
+                )
+            reused = (
+                counters_all.get("edl_serve_prefix_blocks_reused_total")
+                or {}
+            )
+            print(
+                f"  {'prefix_blocks_reused':<24} "
+                f"{sum(reused.values()):g}"
+            )
+            pev = (
+                counters_all.get("edl_serve_prefix_evictions_total")
+                or {}
+            )
+            print(f"  {'prefix_evictions':<24} {sum(pev.values()):g}")
+        req = counters_all.get("edl_serve_requests_total") or {}
+        for key in sorted(req):
+            print(f"  requests{{{key}}}{'':<10} {req[key]:g}")
+    if any(
+        name.startswith("edl_route_")
+        for section in (gauges_all, counters_all)
+        for name in section
+    ):
+        # Front-door summary: the fault-masking the router
+        # did on the fleet's behalf — backends by health state, request
+        # outcomes, steers off draining replicas, per-attempt failures
+        # absorbed, the eject/readmit ledger, and stream re-drives.
+        print("router")
+        backends = gauges_all.get("edl_route_backends") or {}
+        for key in sorted(backends):
+            print(f"  backends{{{key}}}{'':<8} {backends[key]:g}")
+        rreq = counters_all.get("edl_route_requests_total") or {}
+        for key in sorted(rreq):
+            print(f"  requests{{{key}}}{'':<8} {rreq[key]:g}")
+        rsteer = counters_all.get("edl_route_steers_total") or {}
+        if rsteer:
+            print(f"  {'steers_total':<24} {sum(rsteer.values()):g}")
+        rretry = counters_all.get("edl_route_retries_total") or {}
+        if rretry:
+            print(
+                f"  {'retries_absorbed':<24} {sum(rretry.values()):g}"
+            )
+            for key in sorted(rretry):
+                print(f"  retries{{{key}}}{'':<9} {rretry[key]:g}")
+        for cname, tag in (
+            ("edl_route_ejections_total", "ejections_total"),
+            ("edl_route_readmits_total", "readmits_total"),
+        ):
+            c = counters_all.get(cname) or {}
+            if c:
+                print(f"  {tag:<24} {sum(c.values()):g}")
+        rdrv = counters_all.get("edl_route_redrives_total") or {}
+        for key in sorted(rdrv):
+            print(f"  redrives{{{key}}}{'':<8} {rdrv[key]:g}")
+        raff = counters_all.get("edl_route_affinity_total") or {}
+        for key in sorted(raff):
+            print(f"  affinity{{{key}}}{'':<8} {raff[key]:g}")
+    counters = counters_all
+    if counters:
+        print("counters (merged across trainers)")
+        for name in sorted(counters):
+            for key in sorted(counters[name]):
+                label = f"{{{key}}}" if key else ""
+                print(f"  {name}{label:<32} {counters[name][key]:g}")
+    hists = merged.get("histograms") or {}
+    if hists:
+        print("histograms (merged: count / mean)")
+        for name in sorted(hists):
+            for key in sorted(hists[name]):
+                h = hists[name][key]
+                mean = h["sum"] / h["count"] if h["count"] else 0.0
+                label = f"{{{key}}}" if key else ""
+                print(
+                    f"  {name}{label:<32} {h['count']} / {mean:.6f}"
+                )
+    events = (tel.get("events") or [])[-args.events:]
+    if events:
+        print(f"flight recorder (last {len(events)} events)")
+        for ev in events:
+            data = json.dumps(ev.get("data") or {}, sort_keys=True)
+            print(
+                f"  step={ev.get('step'):<7} gen={ev.get('generation'):<4} "
+                f"{ev.get('kind'):<20} {data}"
+            )
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Merge the cluster's flight-recorder journals into ONE causally
+    ordered Chrome-trace/Perfetto timeline (`edl trace <host:port>`):
+    the coordinator's journal (which already holds every member's
+    reported event tail, origin-tagged) is fetched over `/telemetry`,
+    member lanes are clock-aligned with the NTP-style offsets the
+    members estimated from their heartbeats, and the result is written
+    as JSON for ui.perfetto.dev / chrome://tracing — pid = member,
+    tid = subsystem, duration slices for resizes (with per-phase child
+    slices), instants for votes/quiesce/saves/decisions.
+
+    ``--journal name=path`` merges on-disk JSONL spills
+    (EDL_FLIGHT_RECORDER_FILE) instead of / in addition to the live
+    coordinator — the post-mortem path.  ``--trace-id`` filters to one
+    causal chain; ``--summary`` prints the goodput decomposition and
+    the trace chains instead of only writing the file."""
+    from edl_tpu_torch.telemetry import trace as tracing
+
+    streams = {}
+    offsets = {}
+    goodput = None
+    if args.url:
+        from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
+
+        client = HTTPCoordinator(args.url, timeout=args.timeout)
+        tel = client.telemetry()
+        streams.update(tracing.member_streams(tel.get("events") or []))
+        offsets = {
+            m: o
+            for m, o in (tel.get("clock_offsets") or {}).items()
+            if o is not None
+        }
+        goodput = tel.get("goodput")
+    for spec in args.journal or []:
+        name, sep, path = spec.partition("=")
+        if not sep:
+            import os
+
+            name, path = os.path.basename(spec), spec
+        streams[name] = tracing.load_journal(path)
+    if not streams:
+        print(
+            "error: nothing to merge (give a coordinator URL and/or "
+            "--journal name=events.jsonl)",
+            file=sys.stderr,
+        )
+        return 2
+    merged = tracing.merge_events(streams, offsets)
+    if args.summary:
+        print(f"events merged: {len(merged)} from {len(streams)} lane(s)")
+        if offsets:
+            for m in sorted(offsets):
+                print(f"  clock offset {m:<20} {offsets[m]:+.6f}s")
+        print("goodput")
+        if goodput:
+            print(f"  {'frac':<24} {goodput['frac']:.4f}")
+            print(f"  {'total_s':<24} {goodput['total_s']:.3f}")
+            for state in sorted(goodput.get("seconds") or {}):
+                print(
+                    f"  {state:<24} {goodput['seconds'][state]:.3f}s"
+                )
+        else:
+            print("  n/a (no goodput ledger reported)")
+        chains = tracing.trace_chains(merged)
+        if chains:
+            print(f"causal chains ({len(chains)})")
+            for tid_, evs in sorted(
+                chains.items(), key=lambda kv: kv[1][0]["wall_aligned"]
+            ):
+                kinds = [e.get("kind") for e in evs]
+                members = sorted({e["member"] for e in evs})
+                print(
+                    f"  {tid_}  {len(evs)} events over "
+                    f"{','.join(members)}: {' -> '.join(kinds[:10])}"
+                    + (" ..." if len(kinds) > 10 else "")
+                )
+    doc = tracing.chrome_trace(merged, trace_id=args.trace_id)
+    out = args.out
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    print(
+        f"merged trace: {out} "
+        f"({len(doc['traceEvents'])} trace events; open at "
+        "ui.perfetto.dev or chrome://tracing)"
+    )
+    return 0
+
+
 def cmd_fleet(args) -> int:
     """Cluster-wide fleet status (`fleet --job lo=host:port,chips=4
     --serve api=host:port`): one table over every bidder's coordinator
     — world/target, chips (GPUs: the market keeps the JAX package's
     word), the training goodput signals the market's objective reads
     (goodput frac, step rate), and the serving SLO signals its hard
-    constraints read (p95, queue depth) — plus the GPU totals.  The same reads the arbiter's bidders make each
-    tick, so what this prints IS the market's next input."""
+    constraints read (p95, queue depth) — plus the GPU totals.  The same
+    reads the arbiter's bidders make each tick, so what this prints IS
+    the market's next input."""
     from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
     from edl_tpu_torch.telemetry.aggregate import histogram_quantile
 
@@ -530,6 +910,58 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true", help="dump raw JSON")
     s.add_argument("--timeout", type=float, default=5.0)
     s.set_defaults(fn=cmd_fleet)
+
+    s = sub.add_parser(
+        "metrics",
+        help="pretty-print a running job's merged metrics + flight "
+        "recorder (from its coordinator URL)",
+    )
+    s.add_argument("url", help="coordinator address (host:port)")
+    s.add_argument(
+        "--events", type=int, default=20, help="flight-recorder tail length"
+    )
+    s.add_argument(
+        "--prom",
+        action="store_true",
+        help="dump the raw Prometheus text exposition instead",
+    )
+    s.add_argument(
+        "--json", action="store_true", help="dump raw JSON instead"
+    )
+    s.add_argument("--timeout", type=float, default=5.0)
+    s.set_defaults(fn=cmd_metrics)
+
+    s = sub.add_parser(
+        "trace",
+        help="merge coordinator + member flight journals into one "
+        "clock-aligned Perfetto timeline (+ goodput summary)",
+    )
+    s.add_argument(
+        "url",
+        nargs="?",
+        default="",
+        help="coordinator address (host:port); omit for --journal-only",
+    )
+    s.add_argument(
+        "--journal",
+        action="append",
+        metavar="NAME=PATH",
+        help="merge an on-disk flight-recorder JSONL spill "
+        "(EDL_FLIGHT_RECORDER_FILE) as lane NAME (repeatable)",
+    )
+    s.add_argument(
+        "--out", default="edl-trace.json", help="output Chrome-trace JSON"
+    )
+    s.add_argument(
+        "--trace-id", default="", help="filter to one causal chain"
+    )
+    s.add_argument(
+        "--summary",
+        action="store_true",
+        help="print the goodput decomposition + causal chains",
+    )
+    s.add_argument("--timeout", type=float, default=5.0)
+    s.set_defaults(fn=cmd_trace)
 
     return p
 

@@ -24,8 +24,9 @@ timing slot):
   seconds (zero in every other member's word) — the per-member
   straggler signal.
 
-The JAX package also journals votes, stops and stragglers in its flight
-recorder, which is not ported yet: the port's bus takes no recorder.
+Votes, stops and straggler transitions are journaled in the flight
+recorder (``consensus.vote``, ``consensus.stop``,
+``consensus.straggler``).
 """
 
 from __future__ import annotations
@@ -86,15 +87,17 @@ class BusWord:
 class StepBus:
     """Dispatch/decode the control word over a process group."""
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, recorder=None):
         from edl_tpu_torch import telemetry
 
         self.registry = registry if registry is not None else telemetry.get_registry()
+        self.recorder = recorder if recorder is not None else telemetry.get_recorder()
         self._m_words = self.registry.counter("edl_consensus_words_total")
         self._m_votes = self.registry.counter("edl_consensus_votes_total")
         self._g_stop = self.registry.gauge("edl_consensus_stop_step")
         self._g_skew = self.registry.gauge("edl_consensus_step_skew_buckets")
         self._m_stragglers = self.registry.counter("edl_consensus_stragglers_total")
+        self._last_straggler: Optional[int] = None
 
     def dispatch(
         self,
@@ -142,10 +145,33 @@ class StepBus:
         self._g_skew.set(skew)
         if straggler is not None:
             self._m_stragglers.inc(rank=str(straggler))
+            if straggler != self._last_straggler:
+                # Transitions only: a persistent straggler must not
+                # flood the ring once per step.
+                self.recorder.record(
+                    "consensus.straggler",
+                    {
+                        "rank": straggler,
+                        "skew_buckets": skew,
+                        "buckets": {str(r): v for r, v in sorted(buckets.items())},
+                    },
+                    step=step,
+                )
+        self._last_straggler = straggler
         return word
 
-    def note_vote(self) -> None:
+    def note_vote(self, step: int, generation: int, proposed_stop: int) -> None:
         self._m_votes.inc()
+        self.recorder.record(
+            "consensus.vote",
+            {"proposed_stop": proposed_stop, "for_generation": generation},
+            step=step,
+        )
 
-    def note_stop(self, stop_step: int) -> None:
+    def note_stop(self, vote_step: int, stop_step: int, generation: int) -> None:
         self._g_stop.set(stop_step)
+        self.recorder.record(
+            "consensus.stop",
+            {"vote_step": vote_step, "stop_step": stop_step, "for_generation": generation},
+            step=vote_step,
+        )

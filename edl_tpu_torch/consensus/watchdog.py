@@ -14,8 +14,9 @@ job's timeout.
 
 The serving engine reuses the deadline machinery for its dispatch
 watchdog through ``on_trip``, which replaces the consensus trip counter
-with the reuser's own accounting.  The JAX package's chaos probe
-(``consensus.watchdog.trip``) is not ported (chaos is not).
+and its ``consensus.watchdog`` event with the reuser's own accounting.
+The JAX package's chaos probe (``consensus.watchdog.trip``) is not
+ported (chaos is not).
 """
 
 from __future__ import annotations
@@ -39,18 +40,20 @@ class CollectiveWatchdog:
     ``on_trip(what, waited)``: a reuser outside the consensus lane (the
     serving engine's dispatch watchdog) keeps the deadline machinery but
     counts its trips under its own names instead of the consensus
-    counter."""
+    counter and event."""
 
     def __init__(
         self,
         timeout: float = 0.0,
         registry=None,
+        recorder=None,
         on_trip: Optional[Callable[[str, float], None]] = None,
     ):
         from edl_tpu_torch import telemetry
 
         self.timeout = timeout
         self.registry = registry if registry is not None else telemetry.get_registry()
+        self.recorder = recorder if recorder is not None else telemetry.get_recorder()
         self._m_trips = self.registry.counter(
             "edl_consensus_watchdog_trips_total"
         )
@@ -95,6 +98,18 @@ class CollectiveWatchdog:
             self._worker = None
             self._q = None
 
+    def _trip(self, what: str, waited: float) -> None:
+        self.trips += 1
+        if self.on_trip is not None:
+            # the reuser's own accounting (the serving dispatch
+            # watchdog's counter and serve.watchdog event)
+            self.on_trip(what, waited)
+            return
+        self._m_trips.inc()
+        self.recorder.record(
+            "consensus.watchdog", {"what": what, "waited_s": round(waited, 3)}
+        )
+
     # -- the guarded fetch ---------------------------------------------------
     def fetch(self, fn: Callable, what: str = "step"):
         """Run ``fn`` (a blocking fetch) under the deadline.  Raises
@@ -108,11 +123,7 @@ class CollectiveWatchdog:
         q.put((fn, box, done))
         if not done.wait(self.timeout):
             self._abandon_worker()
-            self.trips += 1
-            if self.on_trip is not None:
-                self.on_trip(what, self.timeout)
-            else:
-                self._m_trips.inc()
+            self._trip(what, self.timeout)
             raise CollectiveTimeout(
                 f"{what} future missed the {self.timeout}s collective "
                 "watchdog deadline (wedged allreduce? peer stood down "

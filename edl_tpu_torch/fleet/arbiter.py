@@ -3,7 +3,8 @@ copy of ``edl_tpu/fleet/arbiter.py``).
 
 This is the reference's cluster-wide dry run (``scaleAllJobsDryRun``,
 ``pkg/autoscaler.go:296-337``) generalized to N elastic ``TrainingJob``
-bidders + M serving-fleet bidders against ONE GPU inventory, with three deltas the reference could never have:
+bidders + M serving-fleet bidders against ONE GPU inventory, with three
+deltas the reference could never have:
 
 - **Serving SLOs are hard constraints.**  A serving bid's
   ``required_units`` (the ``ServingLane`` band decision) is a floor the
@@ -401,7 +402,7 @@ class FleetArbiter:
         trace id; scale-downs actuate first (training ones wait for the
         consensus victim-drain ack) so the chips a scale-up consumes
         are genuinely free before its retarget lands."""
-        from edl_tpu_torch.runtime.coordinator import new_trace_id
+        from edl_tpu_torch.telemetry.trace import new_trace_id
 
         by_name = {}
         for b in self._bidders():

@@ -41,7 +41,7 @@ def env_config() -> dict:
     the per-generation ``torch.distributed`` rendezvous), and keys of
     parts not ported yet:
     ``EDL_SHARD_ONLY`` (the checkpoint fabric), ``EDL_PARALLELISM``
-    (mesh layouts), ``EDL_FLIGHT_RECORDER_FILE`` and ``EDL_CHAOS_SPEC``.
+    (mesh layouts) and ``EDL_CHAOS_SPEC``.
     The serving pod's keys (``serving.server.serve_run``) are ported,
     with ``EDL_SERVE_DRAIN_MS``, the drain budget, which the JAX package
     reads in ``serve_run`` itself; the engine reads
@@ -78,6 +78,10 @@ def env_config() -> dict:
             else ""
         ),
         "history_file": e.get("EDL_HISTORY_FILE", ""),
+        # flight-recorder JSONL spill ("" = ring buffer only): every
+        # journaled event also appends here, so a crashed pod leaves
+        # its last events on disk (``edl trace --journal`` reads it)
+        "flight_recorder_file": e.get("EDL_FLIGHT_RECORDER_FILE", ""),
         # seconds between telemetry reports to the coordinator
         "telemetry_interval": float(e.get("EDL_TELEMETRY_INTERVAL", "5.0")),
         # Serving-replica pod contract (serving.server.serve_run)
@@ -302,6 +306,10 @@ def run(
     cfg = env_config()
     device = resolve_device(device)
     check_slice_topology(cfg["slice_topology"], device)
+    if cfg["flight_recorder_file"]:
+        from edl_tpu_torch import telemetry
+
+        telemetry.get_recorder().spill_to(cfg["flight_recorder_file"])
     model = get_model(
         entrypoint or cfg["entrypoint"] or "transformer_lm",
         workspace=workspace or cfg["workspace"],

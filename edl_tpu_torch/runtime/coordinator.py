@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import threading
 import time
-import uuid
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -38,13 +37,7 @@ from edl_tpu_torch.telemetry import (
     merge_snapshots,
     render_prometheus,
 )
-
-
-
-def new_trace_id() -> str:
-    """Mint a causal-trace correlation id (one per autoscaler decision
-    / coordinator plan rebuild)."""
-    return uuid.uuid4().hex[:16]
+from edl_tpu_torch.telemetry.trace import new_trace_id
 
 
 @dataclass(frozen=True)
@@ -90,9 +83,8 @@ class ElasticPlan:
     #: causal-trace correlation id of the decision that produced THIS
     #: generation (autoscaler-minted and delivered with the retarget /
     #: prewarm hint; coordinator-minted for join/evict/leave rebuilds).
-    #: The JAX package's members journal every event of the resize
-    #: under it; the port carries it for when its flight recorder lands
-    #: (``edl_tpu.telemetry.trace``).
+    #: Every member journals the events of its resize under it
+    #: (``edl_tpu_torch.telemetry.trace``).
     trace_id: str = ""
     #: trace id of the UPCOMING decision announced via the prewarm
     #: hint (same generation — advisory, like ``prewarm`` itself), so
@@ -195,6 +187,8 @@ class LocalCoordinator:
         #: coordinator-side flight recorder: plan rebuilds, evictions,
         #: and the event tails members ship with their reports
         self._recorder = FlightRecorder(capacity=1024)
+        #: newest generation whose full ack was journaled
+        self._acked_journaled = -1
 
     # -- membership (trainer-facing) ----------------------------------------
     def register(
@@ -255,12 +249,32 @@ class LocalCoordinator:
     def ack_generation(self, trainer_id: str, generation: int):
         """Trainer reports it has re-formed its world into
         ``generation`` (``wait_all_acked`` and ``metrics()``'s
-        ``world_acked`` read the acks)."""
+        ``world_acked`` read the acks).  The moment every planned member
+        has acked the current generation is journaled once
+        (``coord.world_acked``, under the plan's trace): the signal a
+        scale-down waits on before it deletes pods."""
         with self._lock:
             m = self._members.get(trainer_id)
             if m is not None:
                 m.acked_generation = generation
                 self._lock.notify_all()
+            plan = self._plan
+            if (
+                plan is not None
+                and plan.generation > self._acked_journaled
+                and all(
+                    self._members[t].acked_generation >= plan.generation
+                    for t in plan.members
+                    if t in self._members
+                )
+            ):
+                self._acked_journaled = plan.generation
+                self._recorder.record(
+                    "coord.world_acked",
+                    {"world_size": plan.world_size},
+                    generation=plan.generation,
+                    trace=plan.trace_id,
+                )
 
     # -- control (autoscaler/controller-facing) -----------------------------
     def set_target_world(self, n: int, trace_id: str = ""):

@@ -36,7 +36,8 @@ resizes and replays.
 What the JAX package warms ahead (``precompile``, ``prewarm_async``, the
 resize's overlapped step compile) has no counterpart: eager PyTorch
 compiles nothing per world size.  A coordinator prewarm hint is
-accepted and recorded (``prewarm_hints``) and does nothing else.
+accepted, recorded (``prewarm_hints``) and journaled (``prewarm.hint``,
+once per hint and trace id), and does nothing else.
 ``ResizeEvent.compiles`` counts the kernel libraries ``ops/_build.py``
 loaded inside the barrier, the port's form of "a warm resize compiles
 nothing".
@@ -46,9 +47,17 @@ snapshot to the coordinator every ``telemetry_interval`` seconds (the
 JAX ``_maybe_report_telemetry`` / ``_report_telemetry``): the step rate
 the autoscaler's decision log observes comes from these reports.
 
-Not ported yet: the sharded checkpoint fabric (``_fabric_*``), chaos
-points, ``StepProfiler``, the elastic loop's own flight-recorder events
-and causal traces.
+The loop journals its lifecycle in the flight recorder (``resize`` with
+its phase breakdown, ``step.first``, ``world.broken``,
+``consensus.quiesce``, ``prewarm.hint``), and a fresh generation's plan
+trace id is the recorder's ambient trace from the plan poll to the
+first step of that generation, so every event a member journals on the
+way through a resize carries the id of the decision that caused it.
+``EDL_PROFILE_DIR`` turns on bounded ``torch.profiler`` windows around
+chosen steps and resizes (``utils/profiling.py``).
+
+Not ported yet: the sharded checkpoint fabric (``_fabric_*``) and chaos
+points.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from edl_tpu_torch.models.base import ModelDef
 from edl_tpu_torch.runtime.coordinator import ElasticPlan
 from edl_tpu_torch.runtime.data import BatchStager, ShardedDataIterator
 from edl_tpu_torch.runtime.train import Trainer, TrainState, leaf_template
+from edl_tpu_torch.utils.profiling import StepProfiler, annotate
 
 
 class FatalWorldError(RuntimeError):
@@ -277,6 +287,8 @@ class ElasticTrainer:
         self.resize_events: List[ResizeEvent] = []
         self.history: List[StepRecord] = []
         self.on_resize: Optional[Callable[[ResizeEvent], None]] = None
+        #: opt-in device-trace windows (``EDL_PROFILE_DIR``)
+        self.profiler = StepProfiler(device=self.device)
 
         from edl_tpu_torch import telemetry
         from edl_tpu_torch.telemetry.ledger import GoodputLedger
@@ -310,6 +322,14 @@ class ElasticTrainer:
         #: steps below this replay work already completed before a
         #: non-graceful fallback (the ledger's "replaying" bound)
         self._replay_until = 0
+        #: causal tracing: the generation whose first harvested step
+        #: closes a resize's chain, and that chain's trace id (captured
+        #: at resize time: the ambient trace may already belong to a
+        #: newer plan when a pending step harvests in the next barrier)
+        self._first_step_trace_gen: Optional[int] = None
+        self._first_step_trace = ""
+        #: (hint, trace) pairs already journaled as prewarm.hint
+        self._hint_journaled: set = set()
 
         # -- data-plane step agreement (edl_tpu_torch.consensus) -------------
         #: reduce the per-step control word on multi-member worlds
@@ -317,7 +337,7 @@ class ElasticTrainer:
         #: watchdog deadline on harvest-time fetches; None = auto: 120 s
         #: under a world_builder, disabled in-process
         self.collective_timeout: Optional[float] = None
-        self._bus = StepBus(registry=self.telemetry)
+        self._bus = StepBus(registry=self.telemetry, recorder=self.recorder)
         self._watchdog: Optional[CollectiveWatchdog] = None
         self._stop_gen = 0
         self._stop_agreed: Optional[int] = None
@@ -326,6 +346,7 @@ class ElasticTrainer:
         self._last_step_bucket = 0
         self._quiesce_t0: Optional[float] = None
         self._quiesce_deadline: Optional[float] = None
+        self._quiesce_recorded = False
 
     # -- the world ------------------------------------------------------------
     def _world_size(self) -> int:
@@ -455,8 +476,12 @@ class ElasticTrainer:
         self.world = None
         self.generation = plan.generation
         self._standby = True
+        # A standby member's chain ends here (it takes no first step).
+        self.recorder.set_trace("")
 
-    def _finish_overlap(self, flush_bg: Optional[threading.Thread], phases: Dict[str, float]) -> None:
+    def _finish_overlap(
+        self, flush_bg: Optional[threading.Thread], phases: Dict[str, float]
+    ) -> None:
         """Join the flush's background hash/spill and record both its
         own duration and the residual the window waited for it."""
         if flush_bg is None:
@@ -497,51 +522,56 @@ class ElasticTrainer:
         flush_bg: Optional[threading.Thread] = None
         if graceful:
             self._leaf_template()  # from the live state, before it goes
-            try:
-                flushed, flush_bg = self._flush_begin(plan.generation)
-            except Exception:
-                # State poisoned by a peer death between the last step
-                # and this resize: degrade to checkpoint + replay.
-                traceback.print_exc()
-                graceful = False
+            with annotate("resize/flush"):
+                try:
+                    flushed, flush_bg = self._flush_begin(plan.generation)
+                except Exception:
+                    # State poisoned by a peer death between the last
+                    # step and this resize: degrade to checkpoint + replay.
+                    traceback.print_exc()
+                    graceful = False
         t_phase = _mark("flush", t0)
 
         if self.world_builder is not None:
             self.state = None
-            if not self._rebuild_world(plan):
+            with annotate("resize/world_formation"):
+                formed = self._rebuild_world(plan)
+            if not formed:
                 self._finish_overlap(flush_bg, phases)
                 return False
             t_phase = _mark("world_formation", t_phase)
 
-        trainer = self._new_trainer()
+        with annotate("resize/remesh"):
+            trainer = self._new_trainer()
         # Only a FRESH flush (its background thread exists) restores
         # without the latest_verified() crc pass; a flush that deduped
         # against a stored checkpoint keeps the stored-snapshot check.
         flushed_fresh = flushed if flush_bg is not None else None
         transfer_stats = None
-        if trainer.world > 1:
-            from edl_tpu_torch.checkpoint.transfer import TransferError
+        with annotate("resize/restore"):
+            if trainer.world > 1:
+                from edl_tpu_torch.checkpoint.transfer import TransferError
 
-            try:
-                state, restored_step, restore_source, transfer_stats = (
-                    self._restore_multiprocess(trainer, flushed_fresh)
-                )
-            except TransferError:
-                # World-consistent verdict (every member raises): fail
-                # this attempt, hold, retry with a fresh agreement.
-                traceback.print_exc()
-                self._finish_overlap(flush_bg, phases)
-                return False
-        else:
-            ckpt = flushed_fresh if flushed_fresh is not None else self._latest_or_disk()
-            if ckpt is None:
-                state = trainer.init_state()
-                restored_step = 0
-                restore_source = "init"
+                try:
+                    state, restored_step, restore_source, transfer_stats = (
+                        self._restore_multiprocess(trainer, flushed_fresh)
+                    )
+                except TransferError:
+                    # World-consistent verdict (every member raises): fail
+                    # this attempt, hold, retry with a fresh agreement.
+                    traceback.print_exc()
+                    self._finish_overlap(flush_bg, phases)
+                    return False
             else:
-                state = self._state_from_ckpt(trainer, ckpt)
-                restored_step = int(ckpt.step)
-                restore_source = "local"
+                ckpt = flushed_fresh if flushed_fresh is not None else self._latest_or_disk()
+                if ckpt is None:
+                    state = trainer.init_state()
+                    restored_step = 0
+                    restore_source = "init"
+                else:
+                    state = self._state_from_ckpt(trainer, ckpt)
+                    restored_step = int(ckpt.step)
+                    restore_source = "local"
         self.state = state
         self._leaf_template()
         _mark("restore", t_phase)
@@ -552,6 +582,13 @@ class ElasticTrainer:
         self._last_harvest_t = None
         self.ledger.split_resize(phases)
         self._replay_until = restored_step + replayed
+        # The first post-resize step closes this plan's causal chain
+        # (step.first journals in _harvest_one).
+        self._first_step_trace_gen = plan.generation
+        self._first_step_trace = plan.trace_id
+        # Re-arm the profiler so a window can open around this
+        # resize's first steps (EDL_PROFILE_EACH_RESIZE).
+        self.profiler.note_resize()
         self.generation = plan.generation
         self._standby = False
         self._world_members = tuple(plan.members)
@@ -576,6 +613,25 @@ class ElasticTrainer:
             self._m_resize_phase.observe(s, phase=ph)
         if replayed:
             self._m_replayed.inc(replayed)
+        # The event's identity (no timings) reconstructs a run's
+        # resizes; the phase breakdown rides the timing field.
+        timing = {"seconds": round(seconds, 6), "phases": phases}
+        if transfer_stats:
+            timing["transfer_seconds"] = transfer_stats.get("seconds")
+        self.recorder.record(
+            "resize",
+            {
+                "world_size": plan.world_size,
+                "restored_step": restored_step,
+                "replayed_steps": replayed,
+                "graceful": graceful,
+                "restore_source": restore_source,
+                "stop_step": stop_step,
+            },
+            step=self._last_completed_step,
+            generation=plan.generation,
+            timing=timing,
+        )
         if self.on_resize is not None:
             self.on_resize(event)
         # Ack only the members this process owns: acking for peers
@@ -785,6 +841,12 @@ class ElasticTrainer:
         self._holding = True
         self.ledger.transition("broken")
         self._m_world_breaks.inc()
+        self.recorder.record(
+            "world.broken",
+            {"failed_step": self._last_failed_step},
+            step=self._last_completed_step,
+            generation=self.generation,
+        )
 
     # -- data-plane step agreement --------------------------------------------
     def _agreement_horizon(self) -> int:
@@ -809,7 +871,9 @@ class ElasticTrainer:
             timeout = self.collective_timeout
             if timeout is None:
                 timeout = 120.0 if self.world_builder is not None else 0.0
-            wd = self._watchdog = CollectiveWatchdog(timeout=timeout, registry=self.telemetry)
+            wd = self._watchdog = CollectiveWatchdog(
+                timeout=timeout, registry=self.telemetry, recorder=self.recorder
+            )
         return wd.fetch(fn, what=what)
 
     def _dispatch_bus_word(self, step: int):
@@ -826,7 +890,7 @@ class ElasticTrainer:
             stop = step + self._agreement_horizon()
             if self._vote_cast_gen != self._stop_gen:
                 self._vote_cast_gen = self._stop_gen
-                self._bus.note_vote()
+                self._bus.note_vote(step, self._stop_gen, stop)
         return self._bus.dispatch(
             self.world.group,
             self.world.size,
@@ -852,7 +916,7 @@ class ElasticTrainer:
             self._stop_agreed = word.stop_step
             self._stop_gen = max(self._stop_gen, word.max_generation)
             self._start_quiesce_clock()
-            self._bus.note_stop(word.stop_step)
+            self._bus.note_stop(rec.step, word.stop_step, self._stop_gen)
         if word.poisoned:
             raise BusPoisonError(
                 f"a peer marked step {rec.step}'s control word poisoned "
@@ -878,10 +942,25 @@ class ElasticTrainer:
             self._quiesce_t0 = time.perf_counter()
             self._quiesce_deadline = time.monotonic() + self.BARRIER_TIMEOUT
 
+    def _note_quiesced(self) -> None:
+        """Journal this member's quiesce at the agreed stop (once per
+        agreement)."""
+        if self._quiesce_recorded:
+            return
+        self._quiesce_recorded = True
+        self.recorder.record(
+            "consensus.quiesce",
+            {"stop_step": self._effective_stop(), "for_generation": self._stop_gen},
+            step=self._last_completed_step,
+            generation=self.generation,
+        )
+
     def _finish_quiesce(self) -> None:
-        """Observe the retarget->quiesce latency (once per agreement)."""
+        """Journal and observe the retarget->quiesce latency (once per
+        agreement); called on the way into resize or standby."""
         if self._quiesce_t0 is None:
             return
+        self._note_quiesced()
         self._m_quiesce.observe(time.perf_counter() - self._quiesce_t0)
         self._quiesce_t0 = None
 
@@ -892,6 +971,26 @@ class ElasticTrainer:
         self._bus_seen_gen = 0
         self._quiesce_t0 = None
         self._quiesce_deadline = None
+        self._quiesce_recorded = False
+
+    def _note_prewarm(self, plan: ElasticPlan) -> None:
+        """Accept a prewarm hint for an incoming world size (there is
+        nothing to warm) and journal it under the decision that asked
+        for it, once per (hint, trace).  A hint of the current world's
+        size announces nothing incoming."""
+        if plan.prewarm == plan.world_size:
+            return
+        if not self.prewarm_hints or self.prewarm_hints[-1] != plan.prewarm:
+            self.prewarm_hints.append(plan.prewarm)
+        key = (plan.prewarm, plan.prewarm_trace)
+        if key not in self._hint_journaled:
+            self._hint_journaled.add(key)
+            self.recorder.record(
+                "prewarm.hint",
+                {"world_size": plan.prewarm},
+                generation=self.generation,
+                trace=plan.prewarm_trace,
+            )
 
     def maybe_resize(self) -> bool:
         self._heartbeat()
@@ -903,13 +1002,17 @@ class ElasticTrainer:
         if plan.generation != self.generation:
             # A fresh generation supersedes any broken-world hold.
             self._await_new_generation = False
+            # The plan's trace id becomes the ambient trace: every event
+            # this member journals on the way through the resize carries
+            # it, until the first post-resize step journals.
+            if plan.trace_id:
+                self.recorder.set_trace(plan.trace_id)
         if plan.generation == self.generation and (
             self.state is not None or self._standby or self._await_new_generation
         ):
             self._holding = self._standby or self._await_new_generation
             if self.state is not None and not self._holding and plan.prewarm:
-                if not self.prewarm_hints or self.prewarm_hints[-1] != plan.prewarm:
-                    self.prewarm_hints.append(plan.prewarm)
+                self._note_prewarm(plan)
             return False
         if self._consensus_stop_active():
             # A retarget hit a LIVE multi-member world: vote, agree on
@@ -978,7 +1081,9 @@ class ElasticTrainer:
         now = time.perf_counter()
         self._m_device_wait.observe(now - t0)
         self.pipeline_stats["device_wait_s"] += now - t0
-        base = rec.t_dispatch if self._last_harvest_t is None else max(rec.t_dispatch, self._last_harvest_t)
+        base = rec.t_dispatch
+        if self._last_harvest_t is not None:
+            base = max(base, self._last_harvest_t)
         self._last_harvest_t = now
         srec = StepRecord(
             step=rec.step,
@@ -989,8 +1094,25 @@ class ElasticTrainer:
         )
         self._last_step_bucket = timing_bucket(srec.seconds)
         self.history.append(srec)
+        self.recorder.set_context(rec.step, rec.generation)
         self._m_steps.inc()
         self._m_step_seconds.observe(srec.seconds)
+        if self._first_step_trace_gen is not None and rec.generation >= self._first_step_trace_gen:
+            # The first harvested step of the fresh generation closes the
+            # resize's causal chain, under the trace captured at resize
+            # time (a pending step harvesting inside the next barrier's
+            # drain must not journal under the newer plan's trace).
+            self._first_step_trace_gen = None
+            self.recorder.record(
+                "step.first",
+                {"world_size": rec.world_size},
+                step=rec.step,
+                generation=rec.generation,
+                trace=self._first_step_trace,
+            )
+            if self.recorder.trace_context() == self._first_step_trace:
+                self.recorder.set_trace("")
+            self._first_step_trace = ""
         self.ledger.touch()
         if self._on_step is not None:
             self._on_step(srec)
@@ -1100,7 +1222,9 @@ class ElasticTrainer:
                     self.ledger.touch()
                     if not self._drain_guarded():
                         continue
-                    if self._quiesce_deadline is not None and time.monotonic() > self._quiesce_deadline:
+                    self._note_quiesced()
+                    deadline = self._quiesce_deadline
+                    if deadline is not None and time.monotonic() > deadline:
                         self._leak_dead_world()
                         raise RuntimeError(
                             f"quiesced at agreed stop step {self._effective_stop()} "
@@ -1115,12 +1239,19 @@ class ElasticTrainer:
                         # Sanctioned sync point: run exit.
                         self._harvest_pending(0)
                         break
+                    if self.profiler.due(step):
+                        # Sanctioned sync point: a profile window's first
+                        # step.  The steps in flight finish first, so the
+                        # window's device trace holds its own steps alone.
+                        self._harvest_pending(0)
+                        self.profiler.maybe_start(step)
                     self.ledger.transition("replaying" if step < self._replay_until else "stepping")
                     t0 = time.perf_counter()
-                    batch = self._next_batch(step, num_steps)
-                    t1 = time.perf_counter()
-                    self.state, metrics = self.trainer.step(self.state, batch)
-                    bus_word = self._dispatch_bus_word(step)
+                    with self.profiler.step(step):
+                        batch = self._next_batch(step, num_steps)
+                        t1 = time.perf_counter()
+                        self.state, metrics = self.trainer.step(self.state, batch)
+                        bus_word = self._dispatch_bus_word(step)
                     t2 = time.perf_counter()
                     self.pipeline_stats["stage_s"] += t1 - t0
                     self.pipeline_stats["dispatch_s"] += t2 - t1
@@ -1136,6 +1267,12 @@ class ElasticTrainer:
                             bus_word=None if bus_word is None else _HostCopy(bus_word),
                         )
                     )
+                    if self.profiler.closing:
+                        # Sanctioned sync point: a profile window's last
+                        # step.  The window's device work is still in
+                        # flight: harvest it before the trace closes.
+                        self._harvest_pending(0)
+                    self.profiler.maybe_stop()
                     self._host_step = step + 1
                     done_step = step + 1
                     if self.checkpoint_interval > 0 and done_step % self.checkpoint_interval == 0:
@@ -1154,6 +1291,7 @@ class ElasticTrainer:
                     raise
         finally:
             self._on_step = None
+        self.profiler.stop()  # close a live window at the target step
         return self.history
 
     def _leak_dead_world(self) -> None:

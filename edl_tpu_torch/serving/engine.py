@@ -890,19 +890,29 @@ class DecodeEngine(InferenceEngine):
         """The kernel libraries, and with weights installed one prefill,
         one chunk and one decode, each writing only the trash block: the
         first request of a registered replica builds and loads nothing.
-        Returns how many model calls it ran."""
+        Each model call journals a ``serve.warm`` event with its bucket
+        and seconds.  Returns how many model calls it ran."""
         ran = super().warm()
         w = self.current_weights()
         if w is None:
             return ran
         trash = np.zeros(self.blocks_per_seq, np.int32)
         one = np.asarray([3], np.int32)
-        self.prefill(w, one, trash)
+        calls = [("prefill", self.prompt_bucket_for(1), lambda: self.prefill(w, one, trash))]
         if self.spec.chunk_fn is not None:
-            self.prefill_chunk(w, one, 0, trash)
-            ran += 1
-        self.decode_step(w, one, np.zeros(1, np.int32), trash[None])
-        return ran + 2
+            calls.append(("chunk", self.chunk_bucket_for(1),
+                          lambda: self.prefill_chunk(w, one, 0, trash)))
+        calls.append(("decode", self.decode_bucket_for(1), lambda: self.decode_step(
+            w, one, np.zeros(1, np.int32), trash[None])))
+        for call, bucket, run in calls:
+            t0 = time.perf_counter()
+            run()
+            self.recorder.record(
+                "serve.warm",
+                {"bucket": bucket, "call": call, "model": self.model.name},
+                timing={"seconds": round(time.perf_counter() - t0, 6)},
+            )
+        return ran + len(calls)
 
     def _run(self, fn, params, tokens, lengths, tables, offsets=None, what="decode") -> np.ndarray:
         args = [self._to_device(tokens)]

@@ -33,6 +33,9 @@ cache_epoch)``; ``rekey`` to a new key drops the whole index and the
 pool's cached blocks at once, so a reused block never carries another
 generation's K/V.
 
+An invalidation and a rejected collision journal a ``serve.prefix``
+flight event.
+
 The JAX package's chaos points (``chaos_tick``, the forced hash skew)
 come with the chaos slice.
 """
@@ -87,7 +90,7 @@ class PrefixCache:
         self._by_block: Dict[int, int] = {}  # block id -> chain hash
         self.stats = {
             "hits": 0, "misses": 0, "blocks_reused": 0,
-            "evictions": 0, "invalidations": 0,
+            "evictions": 0, "invalidations": 0, "skew_rejected": 0,
         }
         pool.on_evict = self._on_evict
         pool.on_reset = self._on_reset
@@ -95,6 +98,7 @@ class PrefixCache:
         from edl_tpu_torch import telemetry
 
         reg = telemetry.get_registry()
+        self.recorder = telemetry.get_recorder()
         self._m_hits = reg.counter("edl_serve_prefix_hits_total")
         self._m_misses = reg.counter("edl_serve_prefix_misses_total")
         self._m_reused = reg.counter("edl_serve_prefix_blocks_reused_total")
@@ -126,12 +130,22 @@ class PrefixCache:
         if key == self.key:
             return False
         invalidated = self.key is not None
+        prev = self.key
         self.key = key
         if invalidated:
+            dropped = len(self._index)
             self._index.clear()
             self._by_block.clear()
             self.pool.drop_published()
             self.stats["invalidations"] += 1
+            # The counts at the moment of a swap depend on scheduling:
+            # they ride the timing field, outside the event's identity.
+            self.recorder.record(
+                "serve.prefix",
+                {"outcome": "invalidated", "from": list(prev), "to": list(key)},
+                timing={"entries_dropped": dropped, "hits": self.stats["hits"],
+                        "blocks_reused": self.stats["blocks_reused"]},
+            )
         return invalidated
 
     # -- admission side -----------------------------------------------------
@@ -155,7 +169,14 @@ class PrefixCache:
             if ent is None:
                 break
             if ent.h_prev != h_prev or ent.tokens != blk:
-                break  # a chain-hash collision: a miss, not foreign K/V
+                # A chain-hash collision: a miss, never foreign K/V.
+                self.stats["skew_rejected"] += 1
+                self.recorder.record(
+                    "serve.prefix",
+                    {"outcome": "hash_skew_rejected", "forced": False},
+                    timing={"at_block": i},
+                )
+                break
             try:
                 self.pool.ref(ent.block)
             except Exception:

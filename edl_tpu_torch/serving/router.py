@@ -839,7 +839,9 @@ class RouterServer:
 
     def __init__(self, router: RequestRouter, host: str = "0.0.0.0",
                  port: int = 0, sync_interval_s: float = 0.5):
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from http.server import BaseHTTPRequestHandler
+
+        from edl_tpu_torch.serving.server import FrontServer
 
         self.router = router
         self.sync_interval_s = float(sync_interval_s)
@@ -990,10 +992,7 @@ class RouterServer:
                 except (BrokenPipeError, ConnectionError):
                     pass  # client went away
 
-        class _Server(ThreadingHTTPServer):
-            daemon_threads = True
-
-        self._httpd = _Server((host, port), Handler)
+        self._httpd = FrontServer((host, port), Handler)
         self.port = self._httpd.server_address[1]
         self._threads: List[threading.Thread] = []
 

@@ -63,6 +63,15 @@ from edl_tpu_torch.serving.batcher import (
 from edl_tpu_torch.serving.engine import NotReadyError
 
 
+class FrontServer(ThreadingHTTPServer):
+    """The HTTP front of a replica or a router.  socketserver's listen
+    backlog of 5 drops the SYNs of a burst of concurrent clients, and
+    each dropped SYN costs its client a 1 s retransmit."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
 def _deadline_s(req) -> Optional[float]:
     ms = req.get("deadline_ms")
     return float(ms) / 1000.0 if ms is not None else None
@@ -419,7 +428,7 @@ class ServingServer:
                     # worker resolves the ticket anyway
                     pass
 
-        self._server = ThreadingHTTPServer((host, port), Handler)
+        self._server = FrontServer((host, port), Handler)
         self._thread: Optional[threading.Thread] = None
 
     @property

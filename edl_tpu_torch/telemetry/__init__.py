@@ -5,9 +5,12 @@ recorder and cluster aggregation (counterpart of ``edl_tpu.telemetry``).
   with catalog-enforced names, Prometheus text exposition and
   mergeable snapshots.
 - ``recorder``: the flight recorder — a (step, generation)-stamped
-  event journal with an order-independent digest.
+  event journal with an order-independent digest and an optional
+  JSONL spill (``EDL_FLIGHT_RECORDER_FILE``).
 - ``aggregate``: the coordinator-side merge of cumulative per-source
   snapshots, and the quantile and goodput reads of that merge.
+- ``trace``: causal-trace ids, clock alignment, and the merged
+  Chrome-trace timeline ``edl trace`` writes.
 
 Process-global default instances live here; ``scoped()`` swaps them
 for a ``with`` block so tests get hermetic telemetry.
@@ -23,7 +26,7 @@ from edl_tpu_torch.telemetry.aggregate import (
     coord_snapshot_gauges,
     histogram_quantile,
 )
-from edl_tpu_torch.telemetry.catalog import CATALOG
+from edl_tpu_torch.telemetry.catalog import CATALOG, KNOWN_EVENT_KINDS
 from edl_tpu_torch.telemetry.recorder import FlightEvent, FlightRecorder
 from edl_tpu_torch.telemetry.registry import (
     MetricsRegistry,
@@ -31,9 +34,11 @@ from edl_tpu_torch.telemetry.registry import (
     render_prometheus,
 )
 from edl_tpu_torch.telemetry.spans import span
+from edl_tpu_torch.telemetry.trace import ClockOffsetEstimator, new_trace_id
 
 __all__ = [
     "CATALOG",
+    "ClockOffsetEstimator",
     "FlightEvent",
     "FlightRecorder",
     "MetricsRegistry",
@@ -41,8 +46,10 @@ __all__ = [
     "coord_snapshot_gauges",
     "get_recorder",
     "get_registry",
+    "KNOWN_EVENT_KINDS",
     "histogram_quantile",
     "merge_snapshots",
+    "new_trace_id",
     "render_prometheus",
     "scoped",
     "set_recorder",

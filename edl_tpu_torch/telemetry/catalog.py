@@ -2,8 +2,9 @@
 emit, with the same schema as the JAX package's catalog (``type``,
 ``help``, allowed ``labels``, optional histogram ``buckets``).  It
 holds only the names the ported slices set; each later slice adds its
-own.  Kept a pure literal so a static checker can ``ast.literal_eval``
-it.
+own.  ``KNOWN_EVENT_KINDS`` does the same for flight-recorder event
+kinds.  Both are pure literals, so a static checker can
+``ast.literal_eval`` them.
 """
 
 CATALOG = {
@@ -624,4 +625,65 @@ CATALOG = {
         "help": "Step at which completion was reported (-1 = none).",
         "labels": (),
     },
+    # -- flight recorder ---------------------------------------------------
+    "edl_flight_spill_dropped_total": {
+        "type": "counter",
+        "help": "Flight-recorder JSONL spill writes dropped (write "
+        "failed, or spill temporarily disabled after a failure).",
+        "labels": (),
+    },
+}
+
+# Every flight-recorder event kind the port journals: the keys are a
+# subset of the JAX package's ``KNOWN_EVENT_KINDS``, and a test holds
+# every literal ``.record("<kind>"`` of the port to them.  Free-form
+# kinds are what make merged cluster timelines unreadable.  The chaos
+# and fabric kinds come with their slices.  Pure literal.
+KNOWN_EVENT_KINDS = {
+    # training / resize lifecycle (runtime.elastic)
+    "resize": "a resize barrier completed on this member",
+    "step.first": "first harvested step of a fresh generation",
+    "world.broken": "live process group abandoned mid-collective",
+    "prewarm.hint": "a coordinator prewarm hint accepted (nothing to warm)",
+    "profile.window": "a bounded device-trace window opened/closed",
+    # checkpoints / transfer
+    "checkpoint.save": "checkpoint materialization submitted",
+    "transfer": "streaming restore-transfer summary",
+    # control plane (runtime.coordinator)
+    "coord.plan": "coordinator plan rebuild (generation bump)",
+    "coord.evict": "heartbeat-lease eviction",
+    "coord.telemetry": "trainer telemetry report ingested",
+    "coord.world_acked": "every planned member acked the generation",
+    # consensus
+    "consensus.vote": "stop vote cast on the step bus",
+    "consensus.stop": "stop agreement learned from a harvested word",
+    "consensus.quiesce": "member drained at the agreed stop boundary",
+    "consensus.straggler": "timing-lane straggler transition",
+    "consensus.watchdog": "collective watchdog deadline expired",
+    # resilience plumbing
+    "retry": "transient failure absorbed by RetryPolicy",
+    "retry.giveup": "RetryPolicy exhausted (GiveUpError)",
+    # autoscaler
+    "autoscaler.decision": "one goodput-annotated decision-log entry",
+    # multi-job fleet market
+    "fleet.decision": "one per-job fleet-arbiter decision entry",
+    "fleet.preempt": "a trainer stepped down to cover a serving SLO",
+    # inference serving
+    "serve.warm": "a serving model call run by warm()",
+    "serve.swap": "a newer verified checkpoint hot-swapped in",
+    "serve.swap.rejected": "a hot-swap candidate failed verification",
+    "serve.replica": "a serving replica registered / took traffic",
+    "serve.restart": "a hot swap re-prefilled in-flight sequences",
+    "serve.drain": "a replica drain started / completed",
+    "serve.watchdog": "a serving dispatch missed the watchdog deadline",
+    "serve.migrate": "a live KV sequence moved (or fell back) at drain",
+    "serve.prefix": "the KV prefix cache invalidated / rejected",
+    # fleet front door: the request router
+    "route.steer": "new work steered off a draining replica pre-503",
+    "route.eject": "a replica left rotation on passive health",
+    "route.readmit": "an active probe re-admitted an ejected replica",
+    "route.redrive": "a cut /generate stream re-driven on a survivor",
+    "route.exhausted": "a request spent its whole retry budget",
+    # recorder-internal default for ingested events missing a kind
+    "event": "unclassified ingested event",
 }

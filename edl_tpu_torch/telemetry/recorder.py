@@ -5,9 +5,8 @@ Every event that matters to a post-mortem — resizes, retries, chaos
 injections, checkpoint saves, transfer summaries, world breaks,
 autoscaler decisions — lands here as a ``FlightEvent`` stamped with
 (seq, step, generation, kind, data).  The buffer is a bounded ring
-(``capacity`` events).  The reference's JSONL spill
-(``EDL_FLIGHT_RECORDER_FILE``) is not ported: nothing in the port turns
-it on yet.
+(``capacity`` events) with an optional JSONL spill, so a crashed soak
+leaves its last N events on disk even when the process dies.
 
 Determinism contract: the *identity* of an event is (step, generation,
 kind, canonical-JSON(data)) — ``digest()`` hashes exactly that, as an
@@ -24,7 +23,7 @@ which the elastic step loop refreshes at every step boundary.
 
 Trace context: events may carry a cluster-wide ``trace`` id (the
 causal-tracing correlation key minted per autoscaler decision /
-coordinator plan rebuild).  Like ``wall``
+coordinator plan rebuild, ``edl_tpu_torch.telemetry.trace``).  Like ``wall``
 and ``timing`` it is a NON-identity field — trace ids are random, and
 including them in ``identity()`` would break the chaos-soak digest
 determinism contract.  ``set_trace`` installs an ambient trace id that
@@ -34,12 +33,22 @@ stamps every subsequent record until cleared.
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+#: default JSONL spill rotation bound (``EDL_FLIGHT_RECORDER_MAX_MB``)
+DEFAULT_SPILL_MAX_MB = 64.0
+
+#: after a spill write failure, skip (and count) spill attempts for
+#: this many seconds before retrying — a gone disk must not charge an
+#: open() syscall to every recorded event
+SPILL_RETRY_SECONDS = 5.0
+
 
 def json_safe(v: Any) -> Any:
     """Coerce arbitrary payload values to something JSON-serializable
@@ -94,13 +103,37 @@ class FlightEvent:
 
 
 class FlightRecorder:
-    """Bounded, thread-safe event journal."""
+    """Bounded, thread-safe event journal with optional JSONL spill."""
 
-    def __init__(self, capacity: int = 2048, clock=time.time):
+    def __init__(
+        self,
+        capacity: int = 2048,
+        spill_path: str = "",
+        clock=time.time,
+        spill_max_mb: Optional[float] = None,
+    ):
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=max(1, capacity))
         self._seq = 0
         self._clock = clock
+        self._spill_path = spill_path
+        self._spill_f = None
+        if spill_max_mb is None:
+            spill_max_mb = float(
+                os.environ.get(
+                    "EDL_FLIGHT_RECORDER_MAX_MB", str(DEFAULT_SPILL_MAX_MB)
+                )
+            )
+        #: rotation bound for the JSONL spill: at most ~2x this many
+        #: bytes on disk (live file + one rotated predecessor)
+        self._spill_max_bytes = max(1, int(spill_max_mb * (1 << 20)))
+        self._spill_bytes = 0
+        #: monotonic-ish deadline before which spill attempts are
+        #: skipped (set after a write failure — see SPILL_RETRY_SECONDS)
+        self._spill_retry_at = 0.0
+        #: spill writes dropped (failed or skipped while disabled) —
+        #: also published as edl_flight_spill_dropped_total
+        self.spill_dropped = 0
         #: (step, generation) ambient context for writers that don't
         #: know their training position (updated by the step loop)
         self._context = (-1, -1)
@@ -118,6 +151,80 @@ class FlightRecorder:
 
     def trace_context(self) -> str:
         return self._trace
+
+    # -- spill ----------------------------------------------------------------
+    def spill_to(self, path: str) -> None:
+        """(Re)direct the JSONL spill.  Opened lazily on first record."""
+        with self._lock:
+            if self._spill_f is not None:
+                try:
+                    self._spill_f.close()
+                except Exception:
+                    pass
+                self._spill_f = None
+            self._spill_path = path
+            self._spill_bytes = 0
+            self._spill_retry_at = 0.0
+            if path:
+                # The drop counter exists from the moment the spill is
+                # on, so a scrape can tell "no drops" from "no spill".
+                self._count_spill_drop(0)
+
+    def _count_spill_drop(self, n: int = 1) -> None:
+        """Caller holds the lock.  Best-effort catalog counter — the
+        registry import is lazy (this module must stay importable
+        standalone) and a broken registry must not fail the record."""
+        self.spill_dropped += n
+        try:
+            from edl_tpu_torch import telemetry
+
+            telemetry.get_registry().counter(
+                "edl_flight_spill_dropped_total"
+            ).inc(n)
+        except Exception:
+            pass
+
+    def _spill(self, ev: FlightEvent) -> None:
+        """Caller holds the lock.  Best-effort: a full/gone disk must
+        never fail the event that was being recorded.  A write failure
+        no longer disables the spill forever — the drop is counted
+        (``edl_flight_spill_dropped_total``) and the spill retries
+        after ``SPILL_RETRY_SECONDS``; on success the file rotates at
+        ``EDL_FLIGHT_RECORDER_MAX_MB`` (previous generation kept as
+        ``<path>.1``) so a long healthy run stays size-bounded."""
+        if not self._spill_path:
+            return
+        if self._spill_retry_at and self._clock() < self._spill_retry_at:
+            self._count_spill_drop()
+            return
+        try:
+            if self._spill_f is None:
+                self._spill_f = open(self._spill_path, "a", buffering=1)
+                try:
+                    self._spill_bytes = os.fstat(
+                        self._spill_f.fileno()
+                    ).st_size
+                except OSError:
+                    self._spill_bytes = 0
+            line = json.dumps(ev.to_dict()) + "\n"
+            if self._spill_bytes + len(line) > self._spill_max_bytes:
+                self._spill_f.close()
+                self._spill_f = None
+                os.replace(self._spill_path, self._spill_path + ".1")
+                self._spill_f = open(self._spill_path, "a", buffering=1)
+                self._spill_bytes = 0
+            self._spill_f.write(line)
+            self._spill_bytes += len(line)
+            self._spill_retry_at = 0.0
+        except Exception:
+            if self._spill_f is not None:
+                try:
+                    self._spill_f.close()
+                except Exception:
+                    pass
+                self._spill_f = None
+            self._spill_retry_at = self._clock() + SPILL_RETRY_SECONDS
+            self._count_spill_drop()
 
     # -- recording ------------------------------------------------------------
     def record(
@@ -149,6 +256,7 @@ class FlightRecorder:
                 trace=self._trace if trace is None else str(trace),
             )
             self._ring.append(ev)
+            self._spill(ev)
             return ev
 
     def ingest(self, events: List[dict], origin: str = "") -> None:

@@ -25,6 +25,12 @@ The tiny LM of ``tests/test_torch_train.py`` (V 256, D 64, FF 256, H 4,
   world-1 run's at 1e-5 (``test_dp2_on_gloo_equals_dp1``'s tolerance)
   and the JAX ``ElasticTrainer``'s 1 -> 2 -> 1 run on virtual CPU
   devices at 1e-4; no formation finds a process group left.
+- **The journal**: the bump-and-replay run journals the JAX run's
+  (step, generation, kind) sequence of ``resize``, ``step.first`` and
+  ``checkpoint.save``; in the gloo run every member journals the
+  ``StepBus`` agreement (vote, stop, quiesce) the JAX bus defines,
+  which the JAX in-process world never journals (it has no world
+  builder, so its retargets do not quiesce).
 - ``BatchStager``, the coordinator, its HTTP service and the watchdog.
 """
 
@@ -46,6 +52,7 @@ import optax
 import pytest
 import torch
 
+from edl_tpu import telemetry as jax_telemetry
 from edl_tpu.models import get_model as jax_get_model
 from edl_tpu.models.transformer_lm import TransformerLM as FlaxLM
 from edl_tpu.ops.losses import best_vocab_xent as jax_best_vocab_xent
@@ -53,6 +60,7 @@ from edl_tpu.runtime import ShardedDataIterator as JaxIterator
 from edl_tpu.runtime.coordinator import LocalCoordinator as JaxCoordinator
 from edl_tpu.runtime.data import synthetic_dataset as jax_synthetic_dataset
 from edl_tpu.runtime.elastic import ElasticTrainer as JaxElasticTrainer
+from edl_tpu_torch import telemetry
 from edl_tpu_torch.checkpoint import HostDRAMStore
 from edl_tpu_torch.consensus import CollectiveTimeout, CollectiveWatchdog
 from edl_tpu_torch.convert import params_from_flax
@@ -147,16 +155,32 @@ def _events(et):
 # ---- against the JAX ElasticTrainer ------------------------------------------
 
 
+#: the lifecycle kinds whose (step, generation, kind) sequence both
+#: packages journal alike on the bump-and-replay run
+LIFECYCLE = ("resize", "step.first", "checkpoint.save")
+
+
+def _journal(events, kinds):
+    return [(e.step, e.generation, e.kind) for e in events if e.kind in kinds]
+
+
 @pytest.fixture(scope="module")
-def jax_bump_kill(dataset):
-    coord = JaxCoordinator(target_world=1, max_world=2)
-    coord.register("tr0")
-    et = JaxElasticTrainer(
-        _jax_model(), optax.adam(LR), JaxIterator(dataset, BATCH, seed=0), coord,
-        devices=jax.devices("cpu")[:2], checkpoint_interval=5, seed=0,
-    )
-    _bump_and_kill(et, coord, bump_at=6, kill_at=8)
-    return _stream(et.history), _events(et)
+def jax_bump_kill_run(dataset):
+    with jax_telemetry.scoped() as (_, rec):
+        coord = JaxCoordinator(target_world=1, max_world=2)
+        coord.register("tr0")
+        et = JaxElasticTrainer(
+            _jax_model(), optax.adam(LR), JaxIterator(dataset, BATCH, seed=0), coord,
+            devices=jax.devices("cpu")[:2], checkpoint_interval=5, seed=0,
+        )
+        _bump_and_kill(et, coord, bump_at=6, kill_at=8)
+        et.store.wait()
+        return _stream(et.history), _events(et), rec.events()
+
+
+@pytest.fixture(scope="module")
+def jax_bump_kill(jax_bump_kill_run):
+    return jax_bump_kill_run[:2]
 
 
 def test_elastic_matches_jax_elastic_trainer_with_bump_and_replay(port_model, dataset, jax_bump_kill):
@@ -168,6 +192,24 @@ def test_elastic_matches_jax_elastic_trainer_with_bump_and_replay(port_model, da
     np.testing.assert_allclose([x for _, x in got], [x for _, x in want_stream], rtol=JAX_RTOL)
     assert _events(et) == want_events == [(False, 0, 0), (True, 6, 0), (False, 6, 2)]
     assert got[-1][1] < got[0][1]
+
+
+def test_bump_and_replay_journal_the_jax_lifecycle(port_model, dataset, jax_bump_kill_run):
+    """The same (step, generation, kind) sequence of resizes, first
+    steps and checkpoint saves as the JAX run's journal, and the same
+    deterministic resize payloads."""
+    want = jax_bump_kill_run[2]
+    with telemetry.scoped() as (_, rec):
+        et, coord = _port_et(port_model, dataset, depth=2, interval=5)
+        _bump_and_kill(et, coord, bump_at=6, kill_at=8)
+        et.store.wait()
+        got = rec.events()
+    assert _journal(got, LIFECYCLE) == _journal(want, LIFECYCLE)
+    assert [e.kind for e in got if e.kind in LIFECYCLE].count("step.first") == 3
+    resize = [{k: e.data[k] for k in ("world_size", "restored_step", "replayed_steps",
+                                       "graceful", "stop_step")}
+              for e in got if e.kind == "resize"]
+    assert resize == [{k: e.data[k] for k in resize[0]} for e in want if e.kind == "resize"]
 
 
 # ---- the port's own invariants, bit for bit ------------------------------------
@@ -221,6 +263,7 @@ import json, os, sys, threading, time
 import torch, torch.distributed as dist
 from edl_tpu_torch.checkpoint import HostDRAMStore
 from edl_tpu_torch.launcher import make_world_builder
+from edl_tpu_torch.telemetry import get_recorder
 from edl_tpu_torch.models import get_model
 from edl_tpu_torch.runtime import ElasticTrainer, ShardedDataIterator
 from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
@@ -247,7 +290,8 @@ def dump():
                    "events": [[e.world_size, e.restored_step, e.restore_source, e.stop_step,
                                (e.transfer or {}).get("bytes_received", 0)]
                               for e in et.resize_events],
-                   "formations": forms, "initialized": dist.is_initialized()}, f)
+                   "formations": forms, "initialized": dist.is_initialized(),
+                   "journal": [e.to_dict() for e in get_recorder().events()]}, f)
 
 if role == "lead":
     et.run(4)
@@ -309,21 +353,27 @@ def gloo_1_2_1(port_model, dataset, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_1_2_1(dataset):
-    coord = JaxCoordinator(target_world=1, max_world=2)
-    coord.register("tr0")
-    coord.register("tr1")
-    et = JaxElasticTrainer(
-        _jax_model(), optax.adam(LR), JaxIterator(dataset, BATCH, seed=0), coord,
-        devices=jax.devices("cpu")[:2], checkpoint_interval=4, seed=0,
-    )
-    et.run(4)
-    coord.set_target_world(2)
-    et.run(8)
-    coord.set_target_world(1)
-    et.run(STEPS)
-    assert [r.world_size for r in et.history] == [1] * 4 + [2] * 4 + [1] * 4
-    return _by_step(et.history)
+def jax_1_2_1_run(dataset):
+    with jax_telemetry.scoped() as (_, rec):
+        coord = JaxCoordinator(target_world=1, max_world=2)
+        coord.register("tr0")
+        coord.register("tr1")
+        et = JaxElasticTrainer(
+            _jax_model(), optax.adam(LR), JaxIterator(dataset, BATCH, seed=0), coord,
+            devices=jax.devices("cpu")[:2], checkpoint_interval=4, seed=0,
+        )
+        et.run(4)
+        coord.set_target_world(2)
+        et.run(8)
+        coord.set_target_world(1)
+        et.run(STEPS)
+        assert [r.world_size for r in et.history] == [1] * 4 + [2] * 4 + [1] * 4
+        return _by_step(et.history), rec.events()
+
+
+@pytest.fixture(scope="module")
+def jax_1_2_1(jax_1_2_1_run):
+    return jax_1_2_1_run[0]
 
 
 def test_gloo_1_2_1_equals_fixed_world_and_jax(gloo_1_2_1, jax_1_2_1, fixed_world):
@@ -348,6 +398,44 @@ def test_gloo_1_2_1_equals_fixed_world_and_jax(gloo_1_2_1, jax_1_2_1, fixed_worl
     forms = w1["formations"] + w2["formations"]
     assert forms and not any(f["group_left_after_teardown"] for f in forms)
     assert not w1["initialized"] and not w2["initialized"]
+
+
+def test_gloo_1_2_1_journals_the_step_bus_agreement(gloo_1_2_1, jax_1_2_1_run):
+    """The 2 -> 1 retarget hits a live world of two: each member
+    journals at most one vote (proposing its vote step + depth + 1),
+    the same agreement learned from the same word and its quiesce at
+    that stop step, in that order; the lead's resize honors it.  The JAX
+    in-process world has no world builder, so its retargets never
+    quiesce and it journals none of these."""
+    consensus = ("consensus.vote", "consensus.stop", "consensus.quiesce")
+    assert not [e for e in jax_1_2_1_run[1] if e.kind in consensus]
+    stops = []
+    for member in gloo_1_2_1:
+        journal = member["journal"]
+        kinds = [e["kind"] for e in journal if e["kind"] in consensus]
+        votes = [e for e in journal if e["kind"] == "consensus.vote"]
+        (stop,) = [e for e in journal if e["kind"] == "consensus.stop"]
+        (quiesce,) = [e for e in journal if e["kind"] == "consensus.quiesce"]
+        assert kinds == ["consensus.vote"] * len(votes) + ["consensus.stop", "consensus.quiesce"]
+        assert len(votes) <= 1
+        for v in votes:
+            assert v["data"]["proposed_stop"] == v["step"] + 3  # pipeline depth 2, + 1
+        stop_step = stop["data"]["stop_step"]
+        assert quiesce["data"]["stop_step"] == stop_step
+        assert stop["data"]["for_generation"] == quiesce["data"]["for_generation"]
+        # the lead resizes into world 1 at the agreed stop; the joiner
+        # leaves the world there and stands by
+        after = [e for e in journal if e["kind"] == "resize" and e["seq"] > quiesce["seq"]]
+        if member is gloo_1_2_1[0]:
+            assert [e["data"]["stop_step"] for e in after] == [stop_step]
+        else:
+            assert after == []
+        stops.append((stop["step"], stop_step))
+    # one agreement: the first word with a vote, decoded alike by both
+    assert stops[0] == stops[1]
+    first_vote = min(e["step"] for m in gloo_1_2_1 for e in m["journal"]
+                     if e["kind"] == "consensus.vote")
+    assert stops[0] == (first_vote, first_vote + 3)
 
 
 # ---- BatchStager --------------------------------------------------------------------
