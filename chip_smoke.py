@@ -6,10 +6,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port's serving and training paths, its elastic runtime,
-its serving fleet, its control plane, its fleet market, its model zoo
-and its observability (flight journal, profile windows, merged
-timeline) on the card and exits non-zero on the first failure.  Phases,
-in order:
+its serving fleet, its control plane, its fleet market, its model zoo,
+its observability (flight journal, profile windows, merged timeline)
+and its MoE family behind ``edl serve`` and ``edl route`` on the card,
+and exits non-zero on the first failure.  Phases, in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -250,10 +250,37 @@ in order:
     metrics --prom`` shows ``edl_flight_spill_dropped_total``.  Prints
     the step ms with a window open and with none, the resize's phase
     seconds as the timeline reads them, and the trace files' bytes.
-14. **Kernels line** — one JSON object listing every ported kernel with
+14. **MoE** — full-width ``moe_lm`` (vocab 32000, d 768, d_ff 3072, 12
+    heads, 12 layers, 8 experts, routing group 256, L 2048; seeded,
+    float32 parameters, bf16 compute, Adam at lr 1e-3, seed 0, the
+    synthetic corpus).  Training at global batch 8 x 2048: step 0 twice
+    from one state bit-identical (loss, aux and every gradient); 2
+    warm-up and 8 timed steps of 12 ``flash_fwd``, 12 ``flash_bwd``, no
+    ``flash_bwd_streamk`` and one each of ``xent_fwd``, ``xent_dy``,
+    ``xent_de``; the batch-0 loss falls; ``moe_drop_rate`` in [0, 1);
+    the kernel path against the plain path at 2 x 2048 (loss 1e-3
+    relative, every gradient 2e-2 of scale), printing the share of
+    tokens each layer routes to another expert; step ms, tokens/s, MFU,
+    peak memory, drop rate and aux loss.  The trained state saved once
+    to a durable directory.  Elastic as phase 12 runs it (bump at step
+    3, state lost after step 6): run B == run A bit for bit.  Serving:
+    ``serve_run(entrypoint="moe_lm", checkpoint_dir=...)`` loads the
+    save (load seconds); phase 4's traffic through a monolithic front on
+    its engine (12 ``flash_fwd`` a prefill, nothing else), the tokens
+    against a per-token-routed full recompute (margin rule), each
+    prompt alone equal to the batch of four (or parting at a near tie),
+    the 1900-token prompt's first token in the replica's chunked
+    posture equal to the monolithic one; TTFT p50, tokens/s, peak
+    memory.  ``python -m edl_tpu_torch.cli serve --entrypoint moe_lm
+    --checkpoint-dir <dir> --port 0`` as a subprocess, registered with
+    a ``CoordinatorServer``: its JSON line (the saved step), one
+    ``/generate`` equal to the in-process replica's; ``route_run`` over
+    that coordinator and ``python -m edl_tpu_torch.cli route`` against
+    it, as a table and with ``--json``.  Prints the phase's seconds.
+15. **Kernels line** — one JSON object listing every ported kernel with
     its launches on the main path, error, times, bound, the shape timed,
     the achieved TFLOP/s and the share of the bound.
-15. **Last line** — ``{"ok": true, "device": {...}}``.
+16. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -1565,16 +1592,10 @@ def _grads(params) -> dict:
     return {n: p.grad.detach().clone() for n, p in params.named_parameters()}
 
 
-def _parity_plain_vs_kernels(trainer, batch, want_launches, kernel_patches=()):
-    """Step-0 loss and gradients on ``batch``: the kernel path (with
-    ``kernel_patches``, ``mock.patch.object`` argument triples, applied)
-    against the plain path (flash_attention_plain through torch
-    autograd, tied_vocab_xent), which launches no kernel."""
-    from contextlib import ExitStack
-    from unittest import mock
-
-    import torch
-
+def _plain_patches() -> tuple:
+    """``mock.patch.object`` triples that put the LM family on its plain
+    path: flash_attention_plain through torch autograd for the
+    attention kernels, tied_vocab_xent for the loss's."""
     import edl_tpu_torch.models.transformer_lm as tlm
     from edl_tpu_torch.ops import tied_vocab_xent
     from edl_tpu_torch.ops.flash_attention import flash_attention_plain
@@ -1582,7 +1603,24 @@ def _parity_plain_vs_kernels(trainer, batch, want_launches, kernel_patches=()):
     def plain_attention(q, k, v, causal=False, scale=None, kv_mask=None):
         return flash_attention_plain(q, k, v, causal, scale, kv_mask)[0]
 
-    state = trainer.init_state()
+    return ((tlm, "fused_attention", plain_attention), (tlm, "best_vocab_xent", tied_vocab_xent))
+
+
+def _parity_plain_vs_kernels(trainer, batch, want_launches, kernel_patches=(), state=None,
+                             plain_patches=()):
+    """Step-0 loss and gradients on ``batch`` from ``state`` (default
+    the trainer's initial state): the kernel path (with
+    ``kernel_patches``, ``mock.patch.object`` argument triples, applied)
+    against the plain path (flash_attention_plain through torch
+    autograd, tied_vocab_xent, and ``plain_patches``), which launches no
+    kernel."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import torch
+
+    if state is None:
+        state = trainer.init_state()
     with ExitStack() as stack:
         for patch in kernel_patches:
             stack.enter_context(mock.patch.object(*patch))
@@ -1594,8 +1632,9 @@ def _parity_plain_vs_kernels(trainer, batch, want_launches, kernel_patches=()):
         fail(f"the kernel path launched {launches}, want {want_launches}")
     grads_k = _grads(state.params)
     _reset_launches()
-    with mock.patch.object(tlm, "fused_attention", plain_attention), \
-            mock.patch.object(tlm, "best_vocab_xent", tied_vocab_xent):
+    with ExitStack() as stack:
+        for patch in _plain_patches() + tuple(plain_patches):
+            stack.enter_context(mock.patch.object(*patch))
         loss_p, _ = trainer.loss_and_grads(state, batch)
     torch.cuda.synchronize()
     if any(_all_launches().values()):
@@ -4118,13 +4157,16 @@ def _fleet_market(card: str):
 def _zoo_want(name) -> dict:
     """Launches a training step of ``name`` makes: transformer_base's 6
     encoder self, 6 decoder self and 6 cross attentions run B1 and B2,
-    its loss B4-B6; the other families run no hand-written kernel
+    its loss B4-B6; moe_lm's 12 self-attentions B1 and B2, its loss
+    B4-B6; the other families run no hand-written kernel
     (convolutions, GroupNorm, pooling and dense layers are cuDNN and
     cuBLAS, as they are XLA in the JAX package)."""
     want = dict.fromkeys(("flash_fwd", "flash_bwd", "flash_bwd_streamk",
                           "xent_fwd", "xent_dy", "xent_de"), 0)
     if name == "transformer_base":
         want.update(flash_fwd=18, flash_bwd=18, xent_fwd=1, xent_dy=1, xent_de=1)
+    elif name == "moe_lm":  # the routing and the experts are torch products
+        want.update(flash_fwd=12, flash_bwd=12, xent_fwd=1, xent_dy=1, xent_de=1)
     return want
 
 
@@ -4503,6 +4545,435 @@ def phase_model_zoo(card: str) -> dict:
     return out
 
 
+# -- phase 14 -------------------------------------------------------------
+
+#: the MoE cell: global batch (``bench_moe_lm``'s), warm-up and timed
+#: steps, the kernel-vs-plain batch, new tokens of the CLI replica's check
+MOE_BATCH = 8
+MOE_WARMUP = 2
+MOE_STEPS = 8
+MOE_PARITY_BATCH = 2
+MOE_CLI_TIMEOUT_S = 240
+
+
+def _moe_training(model, it, card, spill_dir) -> dict:
+    """Step 0 twice from one state (loss, aux and every gradient bit for
+    bit); MOE_WARMUP + MOE_STEPS steps with their launches; the batch-0
+    loss falls; the drop rate in [0, 1); the trained state saved once to
+    ``spill_dir``; the kernel path against the plain path at
+    MOE_PARITY_BATCH, with the share of tokens each layer routes to
+    another expert."""
+    import torch
+
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import edl_tpu_torch.models.moe as moe_mod
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.ops import tied_vocab_xent
+    from edl_tpu_torch.runtime import Trainer
+
+    want = _zoo_want("moe_lm")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, lr=TRAIN_LR, device="cuda", seed=SEED)
+    state = trainer.init_state()
+    batch0 = it.device_batch(0, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    loss_a, aux_a = trainer.loss_and_grads(state, batch0)
+    grads_a = _grads(state.params)
+    aux_a = aux_a["moe_aux_loss"].detach().clone()
+    loss_b, aux_b = trainer.loss_and_grads(state, batch0)
+    differ = [n for n, p in state.params.named_parameters() if not torch.equal(grads_a[n], p.grad)]
+    if not (torch.equal(loss_a, loss_b) and torch.equal(aux_a, aux_b["moe_aux_loss"])) or differ:
+        fail(f"moe_lm: two runs of training step 0 from one state differ: loss "
+             f"{loss_a.item()} / {loss_b.item()}, aux {aux_a.item()} / "
+             f"{aux_b['moe_aux_loss'].item()}, gradients of {differ[:6]}")
+    del grads_a
+    steps = []
+    for step in range(MOE_WARMUP + MOE_STEPS):
+        batch = it.device_batch(step, "cuda")
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _all_launches()
+        if launches != want:
+            fail(f"moe_lm training step {step} launched {launches}, want {want} per step")
+        loss, drop = metrics["loss"].item(), metrics["moe_drop_rate"].item()
+        if not np.isfinite(loss):
+            fail(f"moe_lm training step {step}: loss {loss} is not finite")
+        if not 0.0 <= drop < 1.0:
+            fail(f"moe_lm training step {step}: drop rate {drop} not in [0, 1)")
+        steps.append({"step": step, "loss": loss, "ms": wall_ms,
+                      "moe_aux_loss": metrics["moe_aux_loss"].item(), "moe_drop_rate": drop})
+    peak = torch.cuda.max_memory_allocated()
+    loss0, eval0 = loss_a.item(), trainer.eval_loss(state, batch0).item()
+    if not eval0 < loss0:
+        fail(f"moe_lm: the batch-0 loss did not fall over {len(steps)} steps: "
+             f"{loss0} -> {eval0}; step losses {[x['loss'] for x in steps]}")
+    timed = steps[MOE_WARMUP:]
+    step_ms = float(np.median([x["ms"] for x in timed]))
+    out = {
+        "card": card, "batch": MOE_BATCH, "seq_len": model.tokens_per_example, "lr": TRAIN_LR,
+        "setup_s": setup_s, "steps": steps, "step_ms_median": step_ms,
+        "tokens_per_s": MOE_BATCH * model.tokens_per_example / (step_ms * 1e-3),
+        "flops_per_example": model.flops_per_example,
+        "mfu": MOE_BATCH * model.flops_per_example / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
+        "peak_allocated_bytes": peak, "launches_per_step": want,
+        "moe_drop_rate_mean": float(np.mean([x["moe_drop_rate"] for x in timed])),
+        "moe_aux_loss_mean": float(np.mean([x["moe_aux_loss"] for x in timed])),
+        "bit_identical_step0": True, "batch0_loss": [loss0, eval0],
+    }
+    store = HostDRAMStore(spill_dir=spill_dir)
+    t0 = time.perf_counter()
+    store.save_async(state)
+    store.wait()
+    out["spill"] = {"seconds": time.perf_counter() - t0, "step": state.step,
+                    "bytes": store.latest().nbytes()}
+    del state, batch0, store
+    torch.cuda.empty_cache()
+
+    # Kernel path vs plain path.  Routing is an argmax: the two paths'
+    # rounding differs, so a near-tie token may pick another expert and
+    # move its whole MLP output (and the router's gradient with it).
+    # The gradients are held with the plain path on the kernel path's
+    # routes (``moe.top1`` replayed layer by layer); the share of tokens
+    # the plain path routes elsewhere on its own is measured apart.
+    routes = []
+
+    def record(probs):
+        routes.append(torch.argmax(probs, dim=-1))
+        return routes[-1]
+
+    replay = iter(routes)
+    parity_state = trainer.init_state()
+    parity_batch = it.device_batch(0, "cuda", world=MOE_BATCH // MOE_PARITY_BATCH, rank=0)
+    out["parity"] = _parity_plain_vs_kernels(
+        trainer, parity_batch, want, state=parity_state,
+        kernel_patches=((moe_mod, "top1", record),),
+        plain_patches=((moe_mod, "best_vocab_xent", tied_vocab_xent),
+                       (moe_mod, "top1", lambda probs: next(replay))))
+    out["parity"]["routes"] = "the plain path on the kernel path's routes"
+    layers = model.decode.layers
+    kernel_routes, plain_routes = routes[:layers], []
+    with ExitStack() as stack, torch.no_grad():
+        for patch in _plain_patches() + (
+                (moe_mod, "best_vocab_xent", tied_vocab_xent),
+                (moe_mod, "top1", lambda probs: plain_routes.append(
+                    torch.argmax(probs, dim=-1)) or plain_routes[-1])):
+            stack.enter_context(mock.patch.object(*patch))
+        model.loss_fn(parity_state.params, parity_batch)
+    if len(routes) != layers or len(plain_routes) != layers:
+        fail(f"moe_lm parity: {len(routes)} / {len(plain_routes)} routings, want {layers}")
+    flips = [float((a != b).float().mean()) for a, b in zip(kernel_routes, plain_routes)]
+    out["parity"]["plain_own_routes_flip_share_by_layer"] = flips
+    out["parity"]["plain_own_routes_flip_share"] = float(np.mean(flips))
+    del parity_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_logits(engine, prompt, toks):
+    """moe_lm's full recompute: one monolithic prefill of prompt + toks
+    (minus the last) on a fresh pool, routed per token as every serving
+    path routes (never ``predict_fn``, which routes in capacity groups);
+    the logits at each position that chose a token of ``toks``."""
+    import torch
+
+    params = engine.current_weights().params
+    spec, bt, dev = engine.spec, engine.block_tokens, engine.device
+    seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)]).astype(np.int32)
+    n = len(seq)
+    nblk = -(-n // bt)
+    shape = (spec.layers, nblk + 1, bt, spec.heads, spec.head_dim)
+    kp = torch.zeros(shape, dtype=spec.cache_dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    tok = torch.zeros((1, nblk * bt), dtype=torch.int32, device=dev)
+    tok[0, :n] = torch.from_numpy(seq).to(dev)
+    tab = torch.arange(1, nblk + 1, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        feats, _, _ = params(tok, kv=(kp, vp, tab, torch.tensor([n], dtype=torch.int32,
+                                                                 device=dev), True))
+        rows = feats[0, len(prompt) - 1:n].to(torch.bfloat16).float()
+        return rows @ params.logit_weight(torch.bfloat16).t()
+
+
+def _moe_recompute_check(engine, prompts, served):
+    """Served tokens against ``_moe_logits`` under phase 4's margin rule."""
+    checked = agreed = near_ties = 0
+    for prompt, toks in zip(prompts, served):
+        logits = _moe_logits(engine, prompt, toks)
+        top = logits.topk(2, dim=-1)
+        for i, tok in enumerate(toks):
+            margin = (top.values[i, 0] - top.values[i, 1]).item()
+            tol = MARGIN_FRAC * logits[i].abs().max().item()
+            same = int(top.indices[i, 0]) == int(tok)
+            agreed += same
+            checked += 1
+            if margin > tol:
+                if not same:
+                    fail(f"moe_lm: served token {tok} != full-recompute "
+                         f"{int(top.indices[i, 0])} at step {i} of a {len(prompt)}-token "
+                         f"prompt (margin {margin}, tol {tol})")
+            else:
+                near_ties += 1
+    return {"steps": checked, "agreement": agreed / checked, "near_ties": near_ties}
+
+
+def _moe_same_or_near_tie(engine, prompt, a, b, what):
+    """Two token streams of one prompt: equal, or parting first where
+    the full recompute's top two are within the margin (a near tie may
+    go either way on the card, a clear winner may not)."""
+    if a == b:
+        return None
+    i = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+    logits = _moe_logits(engine, prompt, a[:i + 1])[-1]
+    top = logits.topk(2)
+    margin = (top.values[0] - top.values[1]).item()
+    tol = MARGIN_FRAC * logits.abs().max().item()
+    if margin > tol:
+        fail(f"moe_lm {what}: the streams part at token {i} ({a[i]} / {b[i]}) where the "
+             f"recompute's margin {margin} exceeds {tol}")
+    return {"parted_at": i, "margin": margin, "tol": tol}
+
+
+def _moe_serving(card, spill_dir, saved_step) -> dict:
+    """``serve_run`` over the durable spill in this process: phase 4's
+    traffic through a monolithic front on its engine, each prompt alone,
+    the long prompt in the replica's own (chunked) posture; then ``edl
+    serve`` as a subprocess registered with a serving coordinator,
+    ``route_run`` over it and ``edl route`` against that."""
+    import os
+    import queue
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.runtime import LocalCoordinator
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+    from edl_tpu_torch.serving import ServingServer, TokenContinuousBatcher
+    from edl_tpu_torch.serving.router import route_run
+    from edl_tpu_torch.serving.server import serve_run
+
+    out = {"card": card, "saved_step": saved_step}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    replica = serve_run(entrypoint="moe_lm", checkpoint_dir=spill_dir, port=_free_port(),
+                        host="127.0.0.1", device="cuda", replica_id="moe-0")
+    out["load_s"] = time.perf_counter() - t0
+    engine = replica.engine
+    coord = cserver = router = proc = None
+    mono_gen = front = None
+    try:
+        if not (replica.loaded and engine.weights_step == saved_step):
+            fail(f"moe_lm replica: loaded {replica.loaded}, weights step "
+                 f"{engine.weights_step} (want the saved step {saved_step})")
+        layers = engine.spec.layers
+        mono_gen = TokenContinuousBatcher(engine, chunked_prefill=False, refresh=False).start()
+        front = ServingServer(replica.batcher, host="127.0.0.1", port=0,
+                              gen_batcher=mono_gen).start()
+        base = f"http://127.0.0.1:{front.port}"
+        with _post(base + "/generate", {"inputs": {"tokens": [5, 6, 7]},
+                                        "max_new_tokens": 2}) as r:  # warm-up
+            if r.status != 200:
+                fail(f"moe_lm warm-up /generate answered {r.status}")
+        rng = np.random.RandomState(SEED)
+        prompts = [rng.randint(3, engine.spec.vocab_size, size=n).astype(np.int32)
+                   for n in SERVE_PROMPTS]
+        prefills0 = mono_gen.stats["prefills"]
+        torch.cuda.synchronize()
+        together = {}
+        threads = [threading.Thread(target=_generate, args=(base, p, i == 3, together, i))
+                   for i, p in enumerate(prompts)]
+        _reset_launches()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        prefills = mono_gen.stats["prefills"] - prefills0
+        for i in range(len(prompts)):
+            res = together.get(i)
+            if res is None or res.get("status") != 200 or "error" in res:
+                fail(f"moe_lm /generate request {i} failed: {res}")
+            if len(res["tokens"]) != SERVE_NEW_TOKENS:
+                fail(f"moe_lm /generate request {i} returned {len(res['tokens'])} tokens")
+        want = dict.fromkeys(launches, 0)
+        want["flash_fwd"] = layers * prefills
+        if prefills < len(prompts) or launches != want:
+            fail(f"moe_lm serving launched {launches} for {prefills} prefills (want "
+                 f"{layers} flash_fwd a prefill and nothing else)")
+        served = [together[i]["tokens"] for i in range(len(prompts))]
+        ttfts = sorted(together[i]["ttft_ms"] for i in range(len(prompts)))
+        out["batch_of_four"] = {
+            "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW_TOKENS, "wall_s": wall,
+            "ttft_ms": ttfts, "ttft_p50_ms": float(np.median(ttfts)),
+            "tokens_per_s": sum(len(s) for s in served) / wall, "prefills": prefills,
+            "launches": launches, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "kv_pool_bytes": engine.pool.nbytes(),
+        }
+        # each sequence alone
+        alone, parted = {}, {}
+        for i, p in enumerate(prompts):
+            _generate(base, p, False, alone, i)
+            if alone[i].get("status") != 200 or "error" in alone[i]:
+                fail(f"moe_lm /generate of prompt {i} alone failed: {alone[i]}")
+            d = _moe_same_or_near_tie(engine, p, served[i], alone[i]["tokens"],
+                                      f"prompt {i} alone vs in the batch of four")
+            if d is not None:
+                parted[i] = d
+        out["alone_equals_batch"] = {"equal": len(prompts) - len(parted), "near_ties": parted}
+        if engine.pool.used_blocks != 0:
+            fail(f"moe_lm: {engine.pool.used_blocks} KV blocks owned after serving")
+        out["recompute"] = _moe_recompute_check(engine, prompts, served)
+        # the replica's own front, chunked posture: the long prompt's first token
+        if not replica.gen_batcher.chunked_prefill:
+            fail("moe_lm: serve_run's token batcher is not in the chunked posture")
+        chunked = {}
+        _reset_launches()
+        _generate_plain(f"http://127.0.0.1:{replica.server.port}", prompts[-1], 1, chunked, 0)
+        _replies_ok(chunked, [0], 1, "moe_lm chunked posture")
+        first = {"chunked": chunked[0]["tokens"][0], "monolithic": served[-1][0],
+                 "prefill_chunks": chunked[0]["prefill_chunks"],
+                 "launches": _all_launches()}
+        if first["chunked"] != first["monolithic"]:
+            first["near_tie"] = _moe_same_or_near_tie(
+                engine, prompts[-1], [first["monolithic"]], [first["chunked"]],
+                "the long prompt's first token, chunked vs monolithic")
+        out["long_first_token"] = first
+
+        # edl serve in a subprocess, registered; the router over it; edl route
+        coord = LocalCoordinator(target_world=1, max_world=4)
+        cserver = CoordinatorServer(coord, host="127.0.0.1", port=0).start()
+        port = _free_port()
+        log_path = os.path.join(tempfile.gettempdir(), f"edl-serve-{os.getpid()}.log")
+        env = dict(os.environ, EDL_SERVE_PORT=str(port), EDL_POD_NAME="moe-cli",
+                   EDL_POD_ADDRESS=f"127.0.0.1:{port}")
+        argv = [sys.executable, "-m", "edl_tpu_torch.cli", "serve", "--entrypoint", "moe_lm",
+                "--checkpoint-dir", spill_dir, "--port", "0", "--coordinator",
+                f"127.0.0.1:{cserver.port}", "--duration", str(MOE_CLI_TIMEOUT_S)]
+        t0 = time.perf_counter()
+        with open(log_path, "w") as errf:
+            proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=errf, text=True, env=env)
+        lines = queue.Queue()
+        threading.Thread(target=lambda: lines.put(proc.stdout.readline()), daemon=True).start()
+        try:
+            line = lines.get(timeout=MOE_CLI_TIMEOUT_S - 60)
+        except queue.Empty:
+            line = ""
+        if not line:
+            with open(log_path) as f:
+                fail(f"edl serve printed no line (exit {proc.poll()}): {f.read()[-2000:]}")
+        info = json.loads(line)
+        out["cli"] = {"argv": argv[3:], "line": info, "start_s": time.perf_counter() - t0}
+        if info.get("weights_step") != saved_step or info.get("model") != "moe_lm" or \
+                info.get("port") != port or info.get("replica") != "moe-cli":
+            fail(f"edl serve printed {info}; want moe_lm, replica moe-cli, port {port}, "
+                 f"weights step {saved_step}")
+        cli_reply = {}
+        _generate_plain(f"http://127.0.0.1:{port}", prompts[0], SERVE_NEW_TOKENS, cli_reply, 0)
+        _replies_ok(cli_reply, [0], SERVE_NEW_TOKENS, "edl serve's /generate")
+        d = _moe_same_or_near_tie(engine, prompts[0], alone[0]["tokens"],
+                                  cli_reply[0]["tokens"], "edl serve vs the in-process replica")
+        out["cli"]["tokens_equal"] = d is None
+        out["cli"]["near_tie"] = d
+        router = route_run(f"127.0.0.1:{cserver.port}", port=0, host="127.0.0.1")
+        rbase = f"http://127.0.0.1:{router.port}"
+        _wait_route(rbase, "moe-cli", address=f"127.0.0.1:{port}", timeout=60)
+        table = subprocess.run([sys.executable, "-m", "edl_tpu_torch.cli", "route",
+                                f"127.0.0.1:{router.port}"],
+                               capture_output=True, text=True, timeout=120)
+        raw = subprocess.run([sys.executable, "-m", "edl_tpu_torch.cli", "route",
+                              f"127.0.0.1:{router.port}", "--json"],
+                             capture_output=True, text=True, timeout=120)
+        if table.returncode or raw.returncode:
+            fail(f"edl route exit {table.returncode} / {raw.returncode}: "
+                 f"{table.stderr[-800:]} {raw.stderr[-800:]}")
+        row = [x for x in table.stdout.splitlines() if "moe-cli" in x]
+        rows = json.loads(raw.stdout)["replicas"]
+        if not (row and f"127.0.0.1:{port}" in row[0] and "healthy" in row[0]
+                and [(r["replica"], r["health"]) for r in rows] == [("moe-cli", "healthy")]):
+            fail(f"edl route did not list moe-cli healthy: {table.stdout!r} / {rows}")
+        out["route"] = {"table": table.stdout.splitlines(), "json_replicas": rows}
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        if router is not None:
+            router.stop()
+        if cserver is not None:
+            cserver.stop()
+        if front is not None:
+            front.stop()
+        if mono_gen is not None:
+            mono_gen.stop()
+        replica.stop()
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """Full-width moe_lm (vocab 32000, d 768, d_ff 3072, 12 heads, 12
+    layers, 8 experts, routing group 256, L 2048): training, elastic,
+    serving behind serve_run, edl serve and edl route."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import ShardedDataIterator, synthetic_dataset
+
+    t_phase = time.perf_counter()
+    model = get_model("moe_lm")
+    it = ShardedDataIterator(synthetic_dataset(model.synth_batch, 4 * MOE_BATCH, seed=SEED),
+                             MOE_BATCH, seed=SEED)
+    out = {"model": "moe_lm", "card": card}
+    tmp = tempfile.mkdtemp(prefix="edl-moe-")
+    try:
+        training = _moe_training(model, it, card, tmp)
+        out["training"] = training
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["elastic"] = _zoo_elastic("moe_lm", model, it)
+        out["elastic"]["seconds"] = time.perf_counter() - t0
+        out["serving"] = _moe_serving(card, tmp, training["spill"]["step"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"moe": out})
+    s = out["serving"]
+    log({"moe_summary": {
+        "card": card, "phase_s": out["phase_s"],
+        "step_ms": training["step_ms_median"], "tokens_per_s": training["tokens_per_s"],
+        "mfu": training["mfu"], "train_peak_allocated_bytes": training["peak_allocated_bytes"],
+        "moe_drop_rate": training["moe_drop_rate_mean"],
+        "moe_aux_loss": training["moe_aux_loss_mean"],
+        "parity_flip_share": training["parity"]["plain_own_routes_flip_share"],
+        "spill_s": training["spill"]["seconds"], "spill_bytes": training["spill"]["bytes"],
+        "load_s": s["load_s"], "ttft_p50_ms": s["batch_of_four"]["ttft_p50_ms"],
+        "serve_tokens_per_s": s["batch_of_four"]["tokens_per_s"],
+        "serve_peak_allocated_bytes": s["batch_of_four"]["peak_allocated_bytes"],
+        "cli_start_s": s["cli"]["start_s"], "elastic_s": out["elastic"]["seconds"]}})
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -4869,6 +5340,7 @@ def main() -> int:
     phase_fleet_market(card)
     phase_model_zoo(card)
     phase_observability(card, elastic["losses"])
+    phase_moe(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}

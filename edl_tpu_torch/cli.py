@@ -19,6 +19,10 @@ This CLI subsumes that role:
                   in-memory fake cluster of GPU nodes (no k8s needed)
 - ``controller``  the control-plane daemon against a cluster
 - ``fleet``       one table over every GPU-market bidder's coordinator
+- ``serve``       a checkpoint-backed serving replica (the card unless
+                  ``--device cpu``), registered with a serving
+                  coordinator when given one
+- ``route``       a request router's live routing table
 
 - ``ingest``      stage a real corpus (MNIST IDX files, a token file)
                   into a file-backed array store for ``--data-dir``
@@ -27,8 +31,7 @@ This CLI subsumes that role:
 - ``trace``       merge the coordinator's and the members' flight
                   journals into one clock-aligned Chrome trace
 
-Run it as ``python -m edl_tpu_torch.cli``.  The JAX CLI's ``route`` and
-``serve`` are not ported yet (ROADMAP A-6).
+Run it as ``python -m edl_tpu_torch.cli``.
 """
 
 from __future__ import annotations
@@ -590,6 +593,105 @@ def cmd_metrics(args) -> int:
     return 0
 
 
+def cmd_route(args) -> int:
+    """Print a router's live routing table (``edl route <host:port>``):
+    every backend it knows, its health (healthy / draining / ejected),
+    the load score admissions are spread by and the vitals behind it;
+    ``--json`` prints the raw ``/routes`` table."""
+    import urllib.request
+
+    addr = args.url if "//" in args.url else f"http://{args.url}"
+    with urllib.request.urlopen(f"{addr}/routes", timeout=args.timeout) as resp:
+        table = json.loads(resp.read())
+    if args.json:
+        print(json.dumps(table, indent=2))
+        return 0
+    print("router")
+    print(f"  {'plan_generation':<24} {table.get('plan_generation')}")
+    p95 = table.get("ttft_p95_s")
+    print(f"  {'fleet_ttft_p95':<24} {f'{p95 * 1000:.1f} ms' if p95 is not None else 'n/a'}")
+    print(f"  {'affinity_entries':<24} {table.get('affinity_entries', 0)}")
+    replicas = table.get("replicas") or []
+    if not replicas:
+        print("  (no backends)")
+        return 0
+    print(f"  {'replica':<12} {'address':<22} {'health':<9} "
+          f"{'score':>7} {'queue':>6} {'kv':>6} {'fails':>6} gen")
+    for r in sorted(replicas, key=lambda x: x.get("score") or 0.0):
+        kv = r.get("kv_occupancy") or 0.0
+        print(
+            f"  {r.get('replica', '?'):<12} "
+            f"{r.get('address', '?'):<22} "
+            f"{r.get('health', '?'):<9} "
+            f"{r.get('score', 0.0):>7.2f} "
+            f"{r.get('queue_depth', 0):>6g} "
+            f"{kv:>6.2f} "
+            f"{r.get('consecutive_failures', 0):>6g} "
+            f"{'yes' if r.get('can_generate') else 'no'}"
+        )
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Run a serving replica (``edl serve --spec job.yaml`` or ``edl
+    serve --entrypoint moe_lm --checkpoint-dir d/``): load the newest
+    verified checkpoint, open the HTTP front (/predict, /generate,
+    /healthz, /metrics) and, given a serving coordinator, register into
+    the serving world the autoscaler's serving lane scales
+    (``serving.server.serve_run``).  Prints one JSON line (replica,
+    model, port, weights step), then serves until killed or for
+    ``--duration`` seconds.  The spec's ``serving`` section gives the
+    port, batch, queue and deadline the flags leave at 0; ``--port 0``
+    and no spec is ``EDL_SERVE_PORT`` (7180)."""
+    entrypoint = args.entrypoint
+    checkpoint_dir = args.checkpoint_dir
+    port, max_batch, queue_limit, deadline_ms = args.port, args.max_batch, 0, args.deadline_ms
+    if args.spec:
+        job = _load_job(args.spec)
+        entrypoint = entrypoint or job.spec.trainer.entrypoint
+        checkpoint_dir = checkpoint_dir or job.spec.checkpoint_dir
+        sv = job.spec.serving
+        if sv is not None:
+            port = port or sv.port
+            max_batch = max_batch or sv.max_batch
+            queue_limit = sv.queue_limit
+            deadline_ms = deadline_ms or sv.deadline_ms
+    from edl_tpu_torch.serving import serve_run
+
+    replica = serve_run(
+        entrypoint=entrypoint,
+        coordinator_addr=args.coordinator,
+        checkpoint_dir=checkpoint_dir,
+        port=port,
+        max_batch=max_batch,
+        queue_limit=queue_limit,
+        deadline_ms=deadline_ms,
+        device=args.device,
+        **({"tiny": True} if args.tiny else {}),
+    )
+    engine = replica.engine
+    print(json.dumps({
+        "replica": replica.replica_id,
+        "model": engine.model.name,
+        "port": replica.server.port if replica.server else None,
+        "weights_step": engine.weights_step,
+    }), flush=True)
+    try:
+        if args.duration > 0:
+            import time
+
+            time.sleep(args.duration)
+        else:
+            import threading
+
+            threading.Event().wait()  # serve until killed
+    except KeyboardInterrupt:
+        pass
+    finally:
+        replica.stop()
+    return 0
+
+
 def cmd_trace(args) -> int:
     """Merge the cluster's flight-recorder journals into ONE causally
     ordered Chrome-trace/Perfetto timeline (`edl trace <host:port>`):
@@ -910,6 +1012,39 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true", help="dump raw JSON")
     s.add_argument("--timeout", type=float, default=5.0)
     s.set_defaults(fn=cmd_fleet)
+
+    s = sub.add_parser(
+        "route",
+        help="print a router's live routing table (backends, health, load scores)",
+    )
+    s.add_argument("url", help="router address (host:port)")
+    s.add_argument("--json", action="store_true", help="dump raw JSON")
+    s.add_argument("--timeout", type=float, default=5.0)
+    s.set_defaults(fn=cmd_route)
+
+    s = sub.add_parser(
+        "serve",
+        help="run a serving replica (checkpoint-backed, continuous-batched, "
+        "hot-swapping)",
+    )
+    s.add_argument("--spec", default="", help="TrainingJob YAML (serving "
+                   "defaults come from its spec.serving section)")
+    s.add_argument("--entrypoint", default="", help="registered model name")
+    s.add_argument("--coordinator", default="", help="serving-world coordinator address")
+    s.add_argument(
+        "--checkpoint-dir", default="",
+        help="durable checkpoint dir to serve from (training spills here)",
+    )
+    s.add_argument("--port", type=int, default=0)
+    s.add_argument("--max-batch", type=int, default=0)
+    s.add_argument("--deadline-ms", type=int, default=0)
+    s.add_argument(
+        "--duration", type=float, default=0.0,
+        help="serve for N seconds then exit (0 = forever)",
+    )
+    s.add_argument("--device", default=None, help="torch device (default: cuda)")
+    s.add_argument("--tiny", action="store_true", help="the model's tiny configuration")
+    s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser(
         "metrics",

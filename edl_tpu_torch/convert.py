@@ -1,6 +1,6 @@
 """Weights carried across from the JAX package: the flax parameter tree
 of each family -> the port's ``state_dict`` (``TransformerLM`` both
-ways).
+ways; ``MoELM`` by ``moe_from_flax``).
 
 The flax tree is taken as nested dicts of numpy arrays (``jax.device_get``
 of the params, or a checkpoint's leaves), so this module imports no JAX.
@@ -74,9 +74,9 @@ def _conv(leaf, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The flax ``TransformerLM`` params tree -> the port's state_dict
-    (same dtype as the tree's leaves)."""
+def _lm_from_flax(tree: Dict[str, Any], mlp) -> Dict[str, torch.Tensor]:
+    """A decoder LM's tree: embeddings, per layer the norms, attention
+    and ``mlp(layer_tree, prefix)``, and the final norm."""
     sd = {
         "embed.weight": _t(tree["embed"]["embedding"]),
         "pos_embed": _t(tree["pos_embed"]),
@@ -88,11 +88,33 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             sd.update(_norm(lp[ln], p + ln))
         for name in ("qkv", "out"):
             sd.update(_dense(lp["attn"][name], p + "attn." + name))
-        for name in _DENSE:
-            sd.update(_dense(lp[name], p + name))
+        sd.update(mlp(lp, p))
         i += 1
     sd.update(_norm(tree["ln_f"], "ln_f"))
     return sd
+
+
+def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``TransformerLM`` params tree -> the port's state_dict
+    (same dtype as the tree's leaves)."""
+    def mlp(lp, p):
+        return {k: v for name in _DENSE for k, v in _dense(lp[name], p + name).items()}
+
+    return _lm_from_flax(tree, mlp)
+
+
+def moe_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``MoELM`` params tree -> the port's state_dict: as
+    ``params_from_flax``, with each layer's ``moe/router`` a Dense
+    (``moe.router``) and the raw expert weights ``moe/wi`` ``[E, d,
+    d_ff]`` and ``moe/wo`` ``[E, d_ff, d]`` as they are."""
+
+    def mlp(lp, p):
+        moe = lp["moe"]
+        return {**_dense(moe["router"], p + "moe.router"),
+                p + "moe.wi": _t(moe["wi"]), p + "moe.wo": _t(moe["wo"])}
+
+    return _lm_from_flax(tree, mlp)
 
 
 def flax_from_params(state_dict: Dict[str, torch.Tensor], num_heads: int) -> Dict[str, Any]:
@@ -185,6 +207,7 @@ __all__ = [
     "fit_a_line_from_flax",
     "flax_from_params",
     "mnist_from_flax",
+    "moe_from_flax",
     "params_from_flax",
     "resnet_from_flax",
     "transformer_from_flax",

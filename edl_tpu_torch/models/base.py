@@ -116,6 +116,16 @@ class ModelDef:
     tokens_per_example: int = 0
 
 
+def divisor_at_most(n: int, want: int) -> int:
+    """Largest divisor of ``n`` that is <= ``want`` — the shared
+    quantizer for width-like knobs that must divide a token count (MoE
+    routing groups)."""
+    m = max(1, min(want, n))
+    while n % m != 0:
+        m -= 1
+    return m
+
+
 def materialize(make: Callable[[], nn.Module], state_dict: StateDict, device) -> nn.Module:
     """The module ``make()`` builds, on ``device`` with ``state_dict``'s
     weights: built on the meta device and materialized uninitialized,

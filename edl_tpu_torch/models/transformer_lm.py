@@ -27,7 +27,7 @@ The sequence-parallel ring comes with a later slice.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -108,9 +108,16 @@ class LMBlock(nn.Module):
 
 
 class TransformerLM(nn.Module):
+    """The decoder-only LM.  ``block`` builds each layer from
+    ``(num_heads, d_model, d_ff, dtype, param_dtype)`` and is called as
+    ``block(x, kv)``: ``LMBlock`` here, ``MoEBlock`` for the MoE family
+    (``models/moe.py``), which so shares this forward and its ``kv``
+    paths."""
+
     def __init__(self, vocab_size: int, d_model: int, d_ff: int,
                  num_heads: int, num_layers: int, max_len: int,
-                 dtype=torch.bfloat16, param_dtype=None):
+                 dtype=torch.bfloat16, param_dtype=None,
+                 block: Callable[..., nn.Module] = LMBlock):
         super().__init__()
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -121,7 +128,7 @@ class TransformerLM(nn.Module):
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         self.layers = nn.ModuleList(
-            LMBlock(num_heads, d_model, d_ff, dtype, param_dtype)
+            block(num_heads, d_model, d_ff, dtype, param_dtype)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)

@@ -83,6 +83,22 @@ class Trainer:
       the gradient of the loss over the global batch, whose denominator
       is the global valid count, so a world of 2 steps like a world of
       1 on the same global batch.
+    - A loss may hold a term that is a function of sums over the whole
+      global batch (``moe_lm``'s load-balancing loss, ``E * sum_e
+      frac_e * mean_prob_e``: the halves' terms do not add up to the
+      whole's).  Its aux then carries ``global_sums`` (this rank's sums,
+      with their gradient), ``global_term`` (``(sums, world) -> (term,
+      metrics)``) and ``loss`` (the rest), and the returned loss is
+      ``aux["loss"] + global_term(global_sums, 1)[0]``.  At a world of
+      more than one the trainer sums the sums over the group in the
+      same ``all_reduce`` as the valid-token count (one collective
+      after the forward, none at world 1), evaluates the term at the
+      global sums ``G`` as ``global_term(G + (s - s.detach()), world)``
+      (the global value, whose gradient reaches this rank's own sums
+      ``s`` with the global coefficients), and adds it to the weighted
+      rest unweighted: the value and the gradient of the global batch.
+      The term's metrics (``moe_aux_loss``, ``moe_drop_rate``) are the
+      global ones on every rank.  Ranks hold equal slices of the batch.
     - Each step's ``torch.Generator`` is seeded from ``(seed, step)``,
       in place of ``jax.random.fold_in``.
     """
@@ -162,20 +178,32 @@ class Trainer:
         params = state.params
         state.opt_state.zero_grad(set_to_none=True)
         loss, aux = self.model.loss_fn(params, batch, self.step_generator(state.step))
+        sums, term = aux.pop("global_sums", None), aux.pop("global_term", None)
         if self.world == 1:
             loss.backward()
             return loss.detach(), aux
         count = aux.get("valid_tokens")
+        parts = [] if count is None else [count.detach().float().reshape(1)]
+        if sums is not None:
+            parts.append(sums.detach().reshape(-1))
+        reduced = self._all_reduce(torch.cat(parts)) if parts else None
         if count is None:
             weight = torch.tensor(1.0 / self.world, device=loss.device)
         else:
-            count = count.detach().float()
-            weight = count / self._all_reduce(count.clone()).clamp_min(1.0)
-        (loss * weight).backward()
+            weight = count.detach().float() / reduced[0].clamp_min(1.0)
+        unweighted = None
+        if sums is not None:
+            total = reduced[-sums.numel():].reshape(sums.shape)
+            unweighted, metrics = term(total + (sums - sums.detach()), self.world)
+            aux.update(metrics)
+            loss = aux["loss"]
+        weighted = loss * weight
+        (weighted if unweighted is None else weighted + unweighted).backward()
         for p in params.parameters():
             if p.grad is not None:
                 self._all_reduce(p.grad)
-        return self._all_reduce(loss.detach() * weight), aux
+        out = self._all_reduce(weighted.detach())
+        return (out if unweighted is None else out + unweighted.detach()), aux
 
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
         """One Adam step on ``batch`` (this rank's slice of the global

@@ -3,6 +3,7 @@
     python -m edl_tpu_torch.tools.profile_training [--batch 8] [--reps 5]
     python -m edl_tpu_torch.tools.profile_training --model longcontext_lm \
         --seq-len 32768 --batch 1 --reps 2
+    python -m edl_tpu_torch.tools.profile_training --model moe_lm
 
 Builds the ``Trainer`` of a full-width model (``transformer_lm`` by
 default, or another family of ``MODELS``; seeded weights, float32
@@ -12,8 +13,10 @@ step as host wall time per step (ending in a synchronize) and under
 ``torch.profiler``: device time per kernel class (the port's kernels
 B1-B6 by name, cuBLAS products, the optimizer, the rest), the top
 kernels, launches per step and the device's busy share of the wall
-time.  Prints one JSON line for the step and a summary line with the
-card's name and power limit.
+time.  A model whose loss reports ``moe_drop_rate`` (``moe_lm``) has
+the mean drop rate of the measured steps in the step line.  Prints one
+JSON line for the step and a summary line with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 from edl_tpu_torch.tools.profile_serving import _device_us
 
 #: the families it profiles (``--model``)
-MODELS = ("transformer_lm", "longcontext_lm", "transformer_base", "resnet50", "mnist",
-          "fit_a_line")
+MODELS = ("transformer_lm", "longcontext_lm", "moe_lm", "transformer_base", "resnet50",
+          "mnist", "fit_a_line")
 
 #: H100 SXM dense bf16 peak (NVIDIA data sheet, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -92,9 +95,13 @@ def main(argv=None) -> int:
     )
     batches = [it.device_batch(s, "cuda") for s in range(2 * args.reps + 1)]
 
+    drops = []
+
     def run(i):
         nonlocal state
-        state, _ = trainer.step(state, batches[i])
+        state, metrics = trainer.step(state, batches[i])
+        if "moe_drop_rate" in metrics:
+            drops.append(metrics["moe_drop_rate"])
 
     run(0)  # warm-up: library handles, allocator, kernel builds
     torch.cuda.synchronize()
@@ -144,6 +151,8 @@ def main(argv=None) -> int:
         ],
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    if drops:  # the measured steps', the warm-up's left out
+        step["moe_drop_rate_mean"] = float(torch.stack(drops[1:]).mean())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -65,8 +65,12 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "for n in MODEL_ZOO:\n"
         "    assert n in names, n\n"
         "from edl_tpu_torch.models import get_model, load_workspace_factory, registered_models\n"
-        "zoo = {'fit_a_line', 'mnist', 'resnet50', 'transformer_base'}\n"
+        "zoo = {'fit_a_line', 'mnist', 'resnet50', 'transformer_base', 'moe_lm'}\n"
         "assert zoo <= set(registered_models())\n"
+        "from edl_tpu_torch.models.moe import MoELM, moe_loss_fn\n"
+        "from edl_tpu_torch.convert import moe_from_flax\n"
+        "from edl_tpu_torch.cli import cmd_route, cmd_serve\n"
+        "assert get_model('moe_lm', tiny=True).decode.chunk_fn is not None\n"
         "from edl_tpu_torch.runtime.datasets import ingest_mnist_idx, ingest_tokens, read_idx\n"
         "from edl_tpu_torch.cli import cmd_ingest\n"
         "print(len(names))\n"
@@ -96,11 +100,12 @@ CONTROL_PLANE = (
     "edl_tpu_torch.controller.deploy", "edl_tpu_torch.cli",
 )
 
-#: the model zoo's families (BASELINE configs 1-4) and their layers
+#: the model zoo's families (BASELINE configs 1-4, the MoE LM) and
+#: their layers
 MODEL_ZOO = (
     "edl_tpu_torch.models.fit_a_line", "edl_tpu_torch.models.mnist",
     "edl_tpu_torch.models.resnet", "edl_tpu_torch.models.transformer",
-    "edl_tpu_torch.models.layers",
+    "edl_tpu_torch.models.layers", "edl_tpu_torch.models.moe",
 )
 
 #: the GPU market and the serving lane
