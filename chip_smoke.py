@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 
 It drives the port's serving and training paths, its elastic runtime,
 its serving fleet, its control plane, its fleet market, its model zoo,
-its observability (flight journal, profile windows, merged timeline)
-and its MoE family behind ``edl serve`` and ``edl route`` on the card,
-and exits non-zero on the first failure.  Phases, in order:
+its observability (flight journal, profile windows, merged timeline),
+its MoE family behind ``edl serve`` and ``edl route``, and its chaos
+harness on the card, and exits non-zero on the first failure.  Phases,
+in order:
 
 1. **Device** — prints the card's name and power limit (nvidia-smi);
    turns TF32 off for float32 matmuls and convolutions.
@@ -277,10 +278,42 @@ and exits non-zero on the first failure.  Phases, in order:
     ``/generate`` equal to the in-process replica's; ``route_run`` over
     that coordinator and ``python -m edl_tpu_torch.cli route`` against
     it, as a table and with ``--json``.  Prints the phase's seconds.
-15. **Kernels line** — one JSON object listing every ported kernel with
+15. **Chaos** — the chaos harness (``edl_tpu_torch.chaos``) at full
+    width.  Training soak: phase 7's configuration (``transformer_lm``,
+    8 x 2048, seed 0, Adam at 1e-3) through ``ElasticTrainer`` with a
+    ``HostDRAMStore(keep=3)`` spilling to a temp directory, reaching a
+    ``CoordinatorServer`` (over a ``ChaosCoordinator``) through a
+    ``ChaosHTTPCoordinator``, a ``ChaosMonkey`` on its steps: 48 steps at
+    checkpoint interval 4 under ``CHAOS_TRAIN_EVENTS`` (the JAX soak's
+    cycle compressed: grow to 4 with restarts, refused RPCs, a kill,
+    torn RPCs, a death with state loss, a corrupted checkpoint and a
+    death, regrow, timeouts, a coordinator restart, a slow RPC, a
+    shrink, refused RPCs; the stager's failed and slow batch and the
+    flush's slow spill once each).  Checks: nothing pending; the
+    transport's injected counts the schedule's; graceful resizes replay
+    nothing; the corrupted snapshot skipped for the next older one,
+    replaying to the death after it; the loss stream bit-identical to a
+    fault-free run; 12/12/0/1/1/1 launches a dispatched step; the
+    journal's chaos events the fired ones.  Serving soak: phase 9's two
+    replicas (chunked prefill, prefix cache) behind ``route_run`` with
+    its prefix groups, then ``CHAOS_SERVE_EVENTS`` in order: A's prefix
+    cache evicted, then a forced hash skew; a wedged decode dispatch on
+    A; a torn swap candidate in A's store, then a good save; a refused
+    backend and a cut stream at the router; A's drain migrating to B
+    under a torn chunk (a cold re-prefill on B); a fresh A (monolithic)
+    dying mid-stream, the stream resumed on B.  Every stream whole and
+    its tokens equal to the full recompute (margin rule), 12
+    ``flash_fwd`` a monolithic prefill and none chunked, nothing
+    pending.  Prints the resize events, each fault's recovery seconds,
+    the soak's wall time against the fault-free run's, TTFT p50/p95
+    before and during the faults, the wedge's recovery, the swap's
+    seconds to reject and to take, the drain's seconds, the re-drive
+    gap, peak memory and the phase's seconds.
+16. **Kernels line** — one JSON object listing every ported kernel with
     its launches on the main path, error, times, bound, the shape timed,
-    the achieved TFLOP/s and the share of the bound.
-16. **Last line** — ``{"ok": true, "device": {...}}``.
+    the achieved TFLOP/s and the share of the bound, after a line with
+    the whole script's seconds.
+17. **Last line** — ``{"ok": true, "device": {...}}``.
 
 Every phase prints its details as one JSON line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -2512,22 +2545,27 @@ def _stream(base, prompt, new_tokens, on_token=None):
     return out
 
 
-def _stream_ok(res, new_tokens, what):
-    """A whole stream: its done line, no restart line, token indices
-    0..n-1 once each (nothing duplicated or dropped), and the done
-    line's tokens the streamed ones."""
+def _stream_ok(res, new_tokens, what, restarts=0):
+    """A whole stream: its done line, ``restarts`` restart lines (a
+    restart voids the tokens before it), after the last one the token
+    indices 0..n-1 once each (nothing duplicated or dropped), and the
+    done line's tokens the streamed ones.  Returns those tokens."""
     if res.get("error") or res["status"] != 200 or res["done"] is None:
         fail(f"{what}: the stream failed: status {res['status']}, {res.get('error')}, "
              f"last lines {[ev for _, ev in res['lines'][-2:]]}")
-    if res["restarts"] or res["indices"] != list(range(new_tokens)):
-        fail(f"{what}: {res['restarts']} restart lines "
-             f"{[(i, ev) for i, (_, ev) in enumerate(res['lines']) if ev.get('restart')]}, "
-             f"token indices {res['indices']}, done line {res['done']}")
-    if res["done"]["tokens"] != res["tokens"]:
+    lines = [ev for _, ev in res["lines"]]
+    last = max([i for i, ev in enumerate(lines) if ev.get("restart")], default=-1)
+    toks = [ev for ev in lines[last + 1:] if "token" in ev]
+    if res["restarts"] != restarts or [ev["i"] for ev in toks] != list(range(new_tokens)):
+        fail(f"{what}: {res['restarts']} restart lines (want {restarts}) "
+             f"{[(i, ev) for i, ev in enumerate(lines) if ev.get('restart')]}, "
+             f"token indices after the last {[ev['i'] for ev in toks]}, done line {res['done']}")
+    if res["done"]["tokens"] != [ev["token"] for ev in toks]:
         fail(f"{what}: the done line's tokens differ from the streamed ones")
+    return [ev["token"] for ev in toks]
 
 
-def _fleet_replica(engine, coord_addr, rid, chunked=True):
+def _fleet_replica(engine, coord_addr, rid, chunked=True, chaos=None):
     from edl_tpu_torch.runtime.coord_service import HTTPCoordinator
     from edl_tpu_torch.serving import (
         ContinuousBatcher,
@@ -2540,7 +2578,7 @@ def _fleet_replica(engine, coord_addr, rid, chunked=True):
     return ServingReplica(
         engine, server=server, coordinator=HTTPCoordinator(coord_addr), replica_id=rid,
         address=f"127.0.0.1:{server.port}", heartbeat_interval=0.1, telemetry_interval=0.2,
-        gen_batcher=TokenContinuousBatcher(engine, chunked_prefill=chunked),
+        gen_batcher=TokenContinuousBatcher(engine, chunked_prefill=chunked), chaos=chaos,
     ).start()
 
 
@@ -5315,9 +5353,633 @@ def phase_observability(card: str, ref_losses=None) -> dict:
     return out
 
 
+# -- phase 15 -------------------------------------------------------------
+
+#: the training soak: tests/test_chaos.py's 200-step cycle (checkpoint
+#: interval 10) compressed to 48 steps at interval 4, its faults in their
+#: order, and the stager's and the flush's own faults once each.  A
+#: death in step 22 is harvested in the drain before the step-24 save.
+CHAOS_STEPS = 48
+CHAOS_INTERVAL = 4
+CHAOS_TRAIN_EVENTS = (
+    (4, "member.restart", "tr2"), (4, "member.restart", "tr3"), (4, "scale.target", 4),
+    (4, "flush.spill.slow", 0.5),
+    (6, "stage.batch.failed", None),
+    (9, "transport.refuse", 2),
+    (10, "member.kill", "tr3"),
+    (12, "transport.torn", 2),
+    (14, "stage.batch.slow", 0.05),
+    (16, "member.die_with_state", "tr1"),
+    (20, "checkpoint.corrupt", None),
+    (22, "member.die_with_state", "tr2"),
+    (26, "scale.target", 4), (26, "member.restart", "tr1"), (26, "member.restart", "tr2"),
+    (26, "member.restart", "tr3"),
+    (31, "transport.timeout", 2),
+    (34, "coord.restart", None),
+    (36, "transport.slow", 0.05),
+    (38, "scale.target", 2),
+    (43, "transport.refuse", 2),
+)
+#: the serving soak's faults, one chaos step each, in order: A's prefix
+#: cache (evict, then a forced hash skew), a wedged decode dispatch on
+#: A, a torn swap candidate in A's store, the router's refused attempt
+#: and cut stream, B's receiver tearing A's migration, and the fresh
+#: A's death mid-stream
+CHAOS_SERVE_EVENTS = {
+    "a": ((1, "serve.prefix.evicted", 100000), (2, "serve.prefix.hash.skew", None),
+          (3, "serve.dispatch.wedged", None), (4, "serve.swap.torn", None),
+          (8, "serve.replica.die", None)),
+    "b": ((7, "serve.migrate.torn", None),),
+    "router": ((5, "route.backend.refused", None), (6, "route.stream.cut", None)),
+}
+#: full-width sizes of the serving soak (phase 9's prefix groups)
+CHAOS_SERVE_SIZES = {"prefix_blocks": FLEET_PREFIX_BLOCKS, "tails": FLEET_TAILS,
+                     "new": FLEET_NEW, "prompt": 1024, "stream_new": 64, "at": 16,
+                     "trainer_steps": (2, 4, 6)}
+
+
+def _chaos_training_soak(card: str) -> dict:
+    """Phase 7's configuration under the compressed soak: a ChaosMonkey
+    drives an ElasticTrainer that reaches a CoordinatorServer (over a
+    ChaosCoordinator) through a ChaosHTTPCoordinator, against a
+    fault-free ElasticTrainer run of the same steps."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch import telemetry
+    from edl_tpu_torch.chaos import (
+        ChaosCoordinator,
+        ChaosHTTPCoordinator,
+        ChaosMonkey,
+        FaultEvent,
+        FaultSchedule,
+    )
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        ElasticTrainer,
+        LocalCoordinator,
+        ShardedDataIterator,
+        synthetic_dataset,
+    )
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+
+    model = get_model("transformer_lm")
+    layers = model.decode.layers
+    want = {"flash_fwd": layers, "flash_bwd": layers, "flash_bwd_streamk": 0,
+            "xent_fwd": 1, "xent_dy": 1, "xent_de": 1}
+    it = ShardedDataIterator(
+        synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH, seed=SEED)
+    out = {"card": card, "model": "transformer_lm", "batch": TRAIN_BATCH,
+           "seq_len": model.tokens_per_example, "steps": CHAOS_STEPS,
+           "checkpoint_interval": CHAOS_INTERVAL, "events": [list(e) for e in CHAOS_TRAIN_EVENTS]}
+
+    # the fault-free run
+    coord = LocalCoordinator(target_world=1, max_world=4)
+    coord.register("tr0")
+    ref_et = ElasticTrainer(model, it, coord, store=HostDRAMStore(keep=3), lr=TRAIN_LR,
+                            device="cuda", checkpoint_interval=CHAOS_INTERVAL, seed=SEED)
+    t0 = time.perf_counter()
+    ref_et.run(CHAOS_STEPS)
+    ref_et.store.wait()
+    out["fault_free_s"] = time.perf_counter() - t0
+    ref = {r.step: r.loss for r in ref_et.history}
+    del ref_et
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the soak
+    schedule = FaultSchedule(SEED, [FaultEvent(*e) for e in CHAOS_TRAIN_EVENTS])
+
+    def fresh():
+        return LocalCoordinator(target_world=2, max_world=4, heartbeat_timeout=1e9)
+
+    ccoord = ChaosCoordinator(fresh(), schedule)
+    ccoord.register("tr0")
+    ccoord.register("tr1")
+    server = CoordinatorServer(ccoord, host="127.0.0.1", port=0).start(evict=False)
+    tmp = tempfile.mkdtemp(prefix="edl-chaos-")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with telemetry.scoped() as (_, rec):
+            client = ChaosHTTPCoordinator(f"127.0.0.1:{server.port}", schedule, timeout=10.0,
+                                          retries=5, retry_base_delay=0.02)
+            # each coordinator call that carried an injected fault, timed
+            faulted, real_request = [], client._request
+
+            def request(req):
+                before = dict(client.injected)
+                t = time.perf_counter()
+                try:
+                    return real_request(req)
+                finally:
+                    hit = [k for k, v in client.injected.items() if v != before[k]]
+                    if hit:
+                        faulted.append({"faults": hit, "seconds": time.perf_counter() - t})
+
+            client._request = request
+            store = HostDRAMStore(keep=3, spill_dir=tmp, chaos=schedule)
+            et = ElasticTrainer(model, it, client, store=store, lr=TRAIN_LR, device="cuda",
+                                checkpoint_interval=CHAOS_INTERVAL, seed=SEED)
+            monkey = ChaosMonkey(schedule, et, coordinator=ccoord, store=store,
+                                 coordinator_factory=lambda: LocalCoordinator(
+                                     target_world=4, max_world=4, heartbeat_timeout=1e9))
+            monkey.track(["tr0", "tr1"])
+            at_corrupt = {}
+
+            def on_step(r):
+                n = len(monkey.log)
+                monkey.on_step(r)
+                for step, verb, arg in monkey.log[n:]:
+                    if verb == "checkpoint.corrupt":
+                        # the snapshots held when the newest one rotted
+                        at_corrupt.update(victim=arg, steps=store.steps())
+
+            _reset_launches()
+            t0 = time.perf_counter()
+            et.run(CHAOS_STEPS, on_step=on_step)
+            store.wait()
+            out["soak_s"] = time.perf_counter() - t0
+            out["steps_dispatched"] = _check_run_launches(et, want, "chaos soak")
+            journal = [(e.data["point"], e.data["scheduled_step"]) for e in rec.events()
+                       if e.kind == "chaos"]
+        if schedule.pending():
+            fail(f"chaos soak: faults never delivered: {schedule.pending()}")
+        if client.injected != {"refuse": 4, "timeout": 2, "slow": 1, "torn": 2}:
+            fail(f"chaos soak: the transport injected {client.injected}")
+        fired = sorted((e.point, e.step) for e in schedule.fired())
+        if sorted(journal) != fired:
+            fail(f"chaos soak: journaled chaos events {sorted(journal)}, fired {fired}")
+        events = et.resize_events
+        for e in events:
+            if e.graceful and e.replayed_steps:
+                fail(f"chaos soak: graceful resize of generation {e.generation} replayed "
+                     f"{e.replayed_steps} steps")
+        # the rotted snapshot is skipped for the next older one, and the
+        # replay runs from there to the death that followed it
+        victim = at_corrupt.get("victim")
+        older = max((s for s in at_corrupt.get("steps", ()) if s < (victim or 0)), default=None)
+        death = next((s for s, v, _ in monkey.log if v == "member.die_with_state"
+                      and victim is not None and s > victim), None)
+        hit = [e for e in events if not e.graceful and e.restored_step == older
+               and e.replayed_steps == (death or 0) + 1 - older]
+        if older is None or death is None or len(hit) != 1:
+            fail(f"chaos soak: corrupted step {victim} (snapshots {at_corrupt.get('steps')}), "
+                 f"death at {death}: resizes {[(e.restored_step, e.replayed_steps, e.graceful) for e in events]}")
+        slow = [e for e in events if e.graceful and e.phase_seconds.get("flush_bg", 0) >= 0.5]
+        if len(slow) != 1:
+            fail(f"chaos soak: flush.spill.slow stalled {len(slow)} graceful flushes")
+        bad = [(r.step, r.loss, ref.get(r.step)) for r in et.history if r.loss != ref.get(r.step)]
+        if bad or sorted({r.step for r in et.history}) != list(range(CHAOS_STEPS)):
+            fail(f"chaos soak: not bit-identical to the fault-free run: {bad[:4]}")
+        replayed = sum(e.replayed_steps for e in events)
+        out.update({
+            "pending": [], "injected": client.injected, "monkey_log": monkey.log,
+            "corrupted": {"victim": victim, "snapshots": at_corrupt["steps"],
+                          "restored": older, "death_step": death,
+                          "replayed": hit[0].replayed_steps},
+            "resizes": [{"generation": e.generation, "world_size": e.world_size,
+                         "restored_step": e.restored_step, "replayed_steps": e.replayed_steps,
+                         "graceful": e.graceful, "source": e.restore_source,
+                         "seconds": e.seconds, "phase_seconds": e.phase_seconds}
+                        for e in events],
+            # a resize recovers from the fault that caused it: the window,
+            # plus the replayed steps' time for a failure
+            "recovery_s": {
+                "resizes": [e.seconds for e in events],
+                "replay_steps": replayed,
+                "transport_calls": faulted,
+            },
+            "stager": dict(et._stager.stats) if et._stager is not None else None,
+            "bit_identical_to_fault_free": True,
+            "launches_per_step": want,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        })
+        del et
+    finally:
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _chaos_serving_soak(device="cuda", model_kwargs=None, sizes=None) -> tuple:
+    """Phase 9's fleet (two replicas, chunked prefill and prefix cache
+    on, ``route_run`` in front) through the serving faults of
+    ``CHAOS_SERVE_EVENTS``: each replica's engine, batchers, prefix cache
+    and receiver read its own schedule, the router its own, and the
+    soak moves the three clocks together, waiting for each fault to be
+    consumed.  Returns ``(out, log, digest)``: the measurements, the
+    soak's log and the flight recorder's digest (both deterministic
+    for one seed)."""
+    import gc
+
+    import torch
+
+    from edl_tpu_torch import telemetry
+    from edl_tpu_torch.chaos import FaultEvent, FaultSchedule
+    from edl_tpu_torch.checkpoint import HostDRAMStore
+    from edl_tpu_torch.models import get_model
+    from edl_tpu_torch.runtime import (
+        LocalCoordinator,
+        ShardedDataIterator,
+        Trainer,
+        synthetic_dataset,
+    )
+    from edl_tpu_torch.runtime.coord_service import CoordinatorServer
+    from edl_tpu_torch.serving import DecodeEngine
+    from edl_tpu_torch.serving.router import route_run
+
+    sz = dict(CHAOS_SERVE_SIZES, **(sizes or {}))
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sched = {k: FaultSchedule(SEED, [FaultEvent(*e) for e in v])
+             for k, v in CHAOS_SERVE_EVENTS.items()}
+
+    def advance(step):
+        for s in sched.values():
+            s.advance(step)
+
+    def consumed(name, point, timeout=120):
+        deadline = time.monotonic() + timeout
+        while any(e.point == point for e in sched[name].pending()):
+            if time.monotonic() > deadline:
+                fail(f"chaos serving: {point} never consumed")
+            time.sleep(0.005)
+
+    def wait_until(what, cond, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"chaos serving: timed out waiting for {what}")
+            time.sleep(0.005)
+
+    model = get_model("transformer_lm", **(model_kwargs or {}))
+    spec = model.decode
+    # one flash_fwd a layer for each monolithic prefill (no kernel on the CPU)
+    prefill_launches = spec.layers if cuda else 0
+    vocab, bt = spec.vocab_size, 16
+    log_ = []
+    out = {"parts_s": {}, "ttft_ms": {"before": [], "during": [], "before_by_request": []}}
+    t_phase = time.perf_counter()
+    coord = LocalCoordinator(target_world=2, max_world=4)
+    cserver = CoordinatorServer(coord, host="127.0.0.1", port=0).start()
+    caddr = f"127.0.0.1:{cserver.port}"
+    reps, router = {}, None
+    with telemetry.scoped() as (reg, rec):
+        try:
+            trainer = Trainer(model, lr=TRAIN_LR, device=device, seed=SEED)
+            it = ShardedDataIterator(
+                synthetic_dataset(model.synth_batch, 8 * TRAIN_BATCH, seed=SEED), TRAIN_BATCH,
+                seed=SEED)
+
+            def train_to(state, upto):
+                while state.step < upto:
+                    state, _ = trainer.step(state, it.device_batch(state.step, device))
+                sync()
+                return state
+
+            # A's store is the trainer's; B's holds a copy of what it serves
+            store_a, store_b = HostDRAMStore(keep=3), HostDRAMStore(keep=3)
+            state = train_to(trainer.init_state(), sz["trainer_steps"][0])
+            store_a.save_async(state)
+            store_a.wait()
+            store_b.put(store_a.latest())
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            ea = DecodeEngine(model, device=device, max_seqs=8, block_tokens=bt, store=store_a,
+                              chaos=sched["a"])
+            eb = DecodeEngine(model, device=device, max_seqs=8, block_tokens=bt, store=store_b,
+                              chaos=sched["b"])
+            admitted = []
+            for eng, rid in ((ea, "chaos-a"), (eb, "chaos-b")):
+                reps[rid] = _fleet_replica(eng, caddr, rid)
+                _record_admissions(reps[rid], admitted)
+            router = route_run(caddr, port=_free_port(), host="127.0.0.1", probe_interval_s=0.1)
+            router.router.chaos = sched["router"]
+            rbase = f"http://127.0.0.1:{router.port}"
+            for rid in reps:
+                _wait_route(rbase, rid)
+
+            def settle():
+                """Until the router's probes see no replica busy: its
+                order (load, then affinity) is then the same every run."""
+                wait_until("the router seeing the fleet idle", lambda: not any(
+                    r["in_flight"] for r in _get(rbase + "/routes")["replicas"]
+                    if r["health"] == "healthy"))
+
+            def where(prompt):
+                p = [int(x) for x in prompt]
+                hits = [a[0] for a in admitted if a[1] == len(p) and a[2] == tuple(p[:4])
+                        and a[3] == tuple(p[-4:])]
+                return hits[0] if hits else None  # (a handoff admits it again elsewhere)
+
+            def recompute(engine, prompt, toks, what):
+                got = _recompute_check(engine, [np.asarray(prompt)], [toks])
+                log_.append((what, "recompute", got["steps"]))
+                return got
+
+            # 0. the prefix groups of phase 9, streamed through the router:
+            # group 0 lands on A (the order's tie goes by name), group 1
+            # on B while A is busy
+            t0 = time.perf_counter()
+            rng = np.random.RandomState(SEED + 15)
+            prefixes = [rng.randint(3, vocab, size=sz["prefix_blocks"] * bt) for _ in range(2)]
+            groups = [[np.concatenate([pre, rng.randint(3, vocab, size=n)]) for n in sz["tails"]]
+                      for pre in prefixes]
+            _reset_launches()
+            res, started = {}, {}
+
+            def first(g):
+                res[(g, 0)] = _stream(rbase, groups[g][0], sz["new"],
+                                      on_token=lambda n: n == 1 and started.setdefault(g, True))
+
+            th = threading.Thread(target=first, args=(0,))
+            th.start()
+            wait_until("group 0's first token", lambda: started.get(0) or not th.is_alive())
+            wait_until("the router seeing A busy", lambda: any(
+                r["in_flight"] > 0 for r in _get(rbase + "/routes")["replicas"]))
+            first(1)
+            th.join(timeout=600)
+            for g in (0, 1):
+                for i in range(1, len(groups[g])):
+                    settle()
+                    res[(g, i)] = _stream(rbase, groups[g][i], sz["new"])
+            sync()
+            if _all_launches()["flash_fwd"]:
+                fail(f"chaos serving: the chunked posture launched {_all_launches()}")
+            homes = [where(groups[g][0]) for g in (0, 1)]
+            if homes != ["chaos-a", "chaos-b"]:
+                fail(f"chaos serving: the groups' first requests landed on {homes}")
+            for key, r in sorted(res.items()):
+                toks = _stream_ok(r, sz["new"], f"chaos serving: group request {key}")
+                out["ttft_ms"]["before"].append(r["ttft_ms"])
+                # (group, request, replica, reused blocks, ms): each engine's
+                # first request shows apart from the warm ones
+                out["ttft_ms"]["before_by_request"].append(
+                    [*key, where(groups[key[0]][key[1]]), r["done"]["reused_blocks"],
+                     r["ttft_ms"]])
+                log_.append(("group", key, where(groups[key[0]][key[1]]),
+                             r["done"]["reused_blocks"], toks))
+            recompute(ea, groups[0][0], res[(0, 0)]["tokens"], "group")
+            out["parts_s"]["groups"] = time.perf_counter() - t0
+
+            def a_request(prompt, what, want_reused):
+                """One stream through the router that must land on A."""
+                settle()
+                r = _stream(rbase, prompt, sz["new"])
+                toks = _stream_ok(r, sz["new"], what)
+                if where(prompt) != "chaos-a" or r["done"]["reused_blocks"] != want_reused:
+                    fail(f"{what}: served by {where(prompt)} reusing "
+                         f"{r['done']['reused_blocks']} blocks (want chaos-a, {want_reused})")
+                out["ttft_ms"]["during"].append(r["ttft_ms"])
+                log_.append((what, r["done"]["reused_blocks"], toks))
+                recompute(ea, prompt, toks, what)
+
+            # 1. serve.prefix.evicted: A's cached blocks go at its next
+            # busy token boundary, before the next admission claims
+            # them: group 0 then prefills cold, correctly
+            t0 = time.perf_counter()
+            advance(1)
+            tail = lambda: np.concatenate([prefixes[0], rng.randint(3, vocab, size=5)])  # noqa: E731
+            a_request(tail(), "chaos serving: after serve.prefix.evicted", 0)
+            consumed("a", "serve.prefix.evicted", timeout=1)
+            # 2. serve.prefix.hash.skew: the republished entry is taken
+            # for a collision: a miss, never foreign K/V
+            advance(2)
+            a_request(tail(), "chaos serving: under serve.prefix.hash.skew", 0)
+            consumed("a", "serve.prefix.hash.skew", timeout=1)
+            a_request(tail(), "chaos serving: after the prefix faults", sz["prefix_blocks"])
+            outcomes = [e.data["outcome"] for e in rec.events() if e.kind == "serve.prefix"
+                        and e.data["outcome"] in ("chaos_evicted", "hash_skew_rejected")]
+            if outcomes != ["chaos_evicted", "hash_skew_rejected"]:
+                fail(f"chaos serving: prefix outcomes journaled {outcomes}")
+            out["parts_s"]["prefix"] = time.perf_counter() - t0
+
+            # 3. serve.dispatch.wedged on A's decode dispatch after token 4
+            t0 = time.perf_counter()
+            wprompt = rng.randint(3, vocab, size=sz["prompt"])
+            times = []
+
+            def on_event(ev):
+                times.append((time.perf_counter(), ev))
+                if ev.get("i") == 3 and not ev.get("restart") and len(times) == 4:
+                    advance(3)  # the next dispatch of A is token 4's decode
+
+            t = reps["chaos-a"].gen_batcher.submit_generate(
+                {"tokens": wprompt.tolist()}, max_new_tokens=sz["new"], deadline_s=600.0,
+                on_event=on_event)
+            wtoks, meta = t.result(timeout=600)
+            if meta["restarts"] != 1 or reg.counter("edl_serve_dispatch_wedged_total").value() != 1:
+                fail(f"chaos serving: the wedge: {meta['restarts']} restarts, "
+                     f"{reg.counter('edl_serve_dispatch_wedged_total').value()} trips")
+            after = [tt for tt, ev in times if ev.get("restart")]
+            resumed = [tt for tt, ev in times if "token" in ev and after and tt > after[0]]
+            out["wedge"] = {"recovery_ms": (resumed[0] - times[3][0]) * 1e3,
+                            "restarts": meta["restarts"]}
+            log_.append(("wedge", meta["restarts"], wtoks))
+            recompute(ea, wprompt, wtoks, "wedge")
+            out["parts_s"]["wedge"] = time.perf_counter() - t0
+
+            # 4. serve.swap.torn on the trainer's fresh save, then a good one
+            t0 = time.perf_counter()
+            rejected = reg.counter("edl_serve_swap_rejected_total")
+            with ea._refresh_lock:  # no refresh may see the candidate before it rots
+                state = train_to(state, sz["trainer_steps"][1])
+                store_a.save_async(state)
+                store_a.wait()
+                advance(4)
+            # the refresh a token boundary of A runs (its idle worker
+            # would run it within 0.5 s), here at once
+            t1 = time.perf_counter()
+            ea.refresh()
+            reject_s = time.perf_counter() - t1
+            if ea.weights_step != sz["trainer_steps"][0] or store_a.latest().step != sz[
+                    "trainer_steps"][0]:
+                fail(f"chaos serving: after the torn swap A serves step {ea.weights_step}")
+            # (the wedge's new cache epoch dropped A's prefix index)
+            a_request(tail(), "chaos serving: serving the old step after the torn swap", 0)
+            state = train_to(state, sz["trainer_steps"][2])
+            store_a.save_async(state)
+            store_a.wait()
+            t1 = time.perf_counter()
+            ea.refresh()
+            take_s = time.perf_counter() - t1
+            store_b.put(store_a.latest())
+            eb.refresh()
+            if (ea.weights_step, eb.weights_step) != (sz["trainer_steps"][2],) * 2:
+                fail(f"chaos serving: after the good save A serves step {ea.weights_step}, "
+                     f"B step {eb.weights_step}")
+            if rejected.value() != 1:
+                fail(f"chaos serving: {rejected.value()} swap rejections, want 1")
+            del state, trainer
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            out["swap"] = {"reject_s": reject_s, "take_s": take_s,
+                           "steps": list(sz["trainer_steps"])}
+            log_.append(("swap", ea.weights_step, eb.weights_step, rejected.value()))
+            out["parts_s"]["swap"] = time.perf_counter() - t0
+
+            # 5. route.backend.refused, 6. route.stream.cut
+            t0 = time.perf_counter()
+            for step, point in ((5, "route.backend.refused"), (6, "route.stream.cut")):
+                advance(step)
+                p = rng.randint(3, vocab, size=sz["prompt"])
+                settle()
+                r = _stream(rbase, p, sz["new"])
+                toks = _stream_ok(r, sz["new"], f"chaos serving: {point}")
+                consumed("router", point, timeout=1)
+                if point == "route.stream.cut" and r["done"].get("redriven") != 1:
+                    fail(f"chaos serving: the cut stream's done line {r['done']}")
+                out["ttft_ms"]["during"].append(r["ttft_ms"])
+                log_.append((point, r["done"].get("redriven", 0), toks))
+                recompute(ea, p, toks, point)
+            if reg.counter("edl_route_retries_total").value(reason="refused") < 2:
+                fail("chaos serving: the router counted no refused attempt")
+            out["parts_s"]["router"] = time.perf_counter() - t0
+
+            # 7. a migrating drain of A under serve.migrate.torn at B
+            t0 = time.perf_counter()
+            advance(7)
+            _wait_route(rbase, "chaos-a", first=True)
+            mprompt = rng.randint(3, vocab, size=sz["prompt"])
+            drain = {}
+
+            def drain_a():
+                with _post(rbase + "/drain_intent", {"replicas": ["chaos-a"]}) as r:
+                    r.read()
+                t = time.perf_counter()
+                with _post(f"http://{reps['chaos-a'].address}/drain",
+                           {"budget_ms": 120000, "migrate_to": reps["chaos-b"].address}) as r:
+                    drain["ack"] = json.loads(r.read())
+                drain["s"] = time.perf_counter() - t
+
+            drainer = threading.Thread(target=drain_a)
+            migrated = _stream(rbase, mprompt, sz["stream_new"],
+                               on_token=lambda n: n == sz["at"] and drainer.start())
+            drainer.join(timeout=300)
+            consumed("b", "serve.migrate.torn", timeout=1)
+            mtoks = _stream_ok(migrated, sz["stream_new"], "chaos serving: the torn migration",
+                                  restarts=1)
+            mig = (drain.get("ack") or {}).get("migrate") or {}
+            if not (drain.get("ack", {}).get("drained") and mig.get("migrated") == 0
+                    and mig.get("fallback") == 1 and where(mprompt) == "chaos-a"):
+                fail(f"chaos serving: the torn migration's ack {drain.get('ack')}, "
+                     f"admitted by {where(mprompt)}")
+            out["drain"] = {"seconds": drain["s"], "migrate": mig}
+            out["ttft_ms"]["during"].append(migrated["ttft_ms"])
+            log_.append(("torn migration", mig.get("fallback"), mtoks))
+            recompute(eb, mprompt, mtoks, "torn migration")
+            wait_until("A leaving the coordinator", lambda: "chaos-a" not in coord.members())
+            out["parts_s"]["migrate"] = time.perf_counter() - t0
+
+            # 8. serve.replica.die mid-stream: A afresh (its pod schedule),
+            # both monolithic; the router resumes the stream on B
+            t0 = time.perf_counter()
+            reps.pop("chaos-a").stop()
+            reps["chaos-a"] = _fleet_replica(ea, caddr, "chaos-a", chunked=False,
+                                             chaos=sched["a"])
+            _record_admissions(reps["chaos-a"], admitted)
+            gb = reps["chaos-b"].gen_batcher
+            with gb.frozen():
+                gb.chunked_prefill = False
+            _wait_route(rbase, "chaos-a", reps["chaos-a"].address, first=True)
+            rprompt = rng.randint(3, vocab, size=sz["prompt"])
+            kill = {}
+
+            def at_kill(n):
+                if n == sz["at"]:
+                    sync()
+                    kill["t"] = time.perf_counter()
+                    kill["before"] = _all_launches()
+                    _reset_launches()
+                    advance(8)  # A's heartbeat loop dies at its next beat
+
+            _reset_launches()
+            redriven = _stream(rbase, rprompt, sz["stream_new"], on_token=at_kill)
+            sync()
+            leg = _all_launches()
+            consumed("a", "serve.replica.die", timeout=1)
+            rtoks = _stream_ok(redriven, sz["stream_new"], "chaos serving: the killed stream")
+            legs = [a[0] for a in admitted if a[2] == tuple(int(x) for x in rprompt[:4])]
+            if not reps["chaos-a"]._dead or redriven["done"].get("redriven") != 1 or legs != [
+                    "chaos-a", "chaos-b"]:
+                fail(f"chaos serving: the killed stream: dead {reps['chaos-a']._dead}, done "
+                     f"{redriven['done']}, admissions {legs}")
+            if kill["before"]["flash_fwd"] != prefill_launches or leg[
+                    "flash_fwd"] != prefill_launches:
+                fail(f"chaos serving: monolithic prefills launched {kill['before']['flash_fwd']} "
+                     f"and {leg['flash_fwd']} flash_fwd (want {prefill_launches} each)")
+            t_after = [tt for tt, ev in redriven["lines"] if "token" in ev and tt > kill["t"]]
+            t_before = [tt for tt, ev in redriven["lines"] if "token" in ev and tt <= kill["t"]]
+            out["redrive"] = {"gap_ms": (t_after[0] - t_before[-1]) * 1e3,
+                              "launches_a_prefill": kill["before"], "launches_resumed": leg}
+            out["ttft_ms"]["during"].append(redriven["ttft_ms"])
+            log_.append(("killed stream", redriven["done"]["redriven"], rtoks))
+            recompute(eb, rprompt, rtoks, "killed stream")
+            # the router ejects the dead replica after 3 failed probes
+            wait_until("the router ejecting A", lambda: any(
+                r["replica"] == "chaos-a" and r["health"] == "ejected"
+                for r in _get(rbase + "/routes")["replicas"]))
+            out["parts_s"]["die"] = time.perf_counter() - t0
+
+            pending = {k: s.pending() for k, s in sched.items() if s.pending()}
+            if pending:
+                fail(f"chaos serving: faults never delivered: {pending}")
+            fired = sorted((e.point, e.step) for s in sched.values() for e in s.fired())
+            journal = sorted((e.data["point"], e.data["scheduled_step"]) for e in rec.events()
+                             if e.kind == "chaos")
+            if journal != fired:
+                fail(f"chaos serving: journaled chaos events {journal}, fired {fired}")
+            for k in ("before", "during"):
+                v = out["ttft_ms"][k]
+                out["ttft_ms"][k + "_p50_p95"] = [float(np.percentile(v, 50)),
+                                                  float(np.percentile(v, 95))]
+            if cuda:
+                out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            out["phase_s"] = time.perf_counter() - t_phase
+            out["pending"] = []
+        finally:
+            if router is not None:
+                router.stop()
+            for r in reps.values():
+                if not r._dead:
+                    r.stop()
+            cserver.stop()
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        digest = rec.digest()
+    return out, log_, digest
+
+
+def phase_chaos(card: str) -> dict:
+    """The chaos harness on the card: the training soak and the serving
+    soak at full width."""
+    t0 = time.perf_counter()
+    out = {"card": card, "training": _chaos_training_soak(card)}
+    serving, log_, digest = _chaos_serving_soak()
+    out["serving"] = serving
+    out["serving"]["log_entries"] = len(log_)
+    out["serving"]["digest"] = digest
+    out["phase_s"] = time.perf_counter() - t0
+    log({"chaos": out})
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5341,6 +6003,7 @@ def main() -> int:
     phase_model_zoo(card)
     phase_observability(card, elastic["losses"])
     phase_moe(card)
+    phase_chaos(card)
     timings = {name: kernels[name]["timing"] for name in kernels}
     timings.update(xent["timing"])
     errors = {name: kernels[name]["max_abs_err"] for name in kernels}
@@ -5374,6 +6037,7 @@ def main() -> int:
         "shape": timings[name]["shape"], "tflops": timings[name]["tflops"],
         "bound_share": timings[name]["bound_ms"] / timings[name]["kernel_ms"],
     } for name, (source, replaces) in sources.items()]}
+    log({"script": {"seconds": time.perf_counter() - t_script}})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

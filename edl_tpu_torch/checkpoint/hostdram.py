@@ -31,9 +31,16 @@ A checkpoint is a flat list of leaves: the state's ``leaves()`` (for a
   alive in host memory stay bounded.  The JAX store spills every save
   on its own thread.
 
+Chaos (``chaos=``, a ``FaultSchedule``; None in production, one branch
+per save): ``checkpoint.save_thread`` kills an async save or a flush,
+``checkpoint.spill`` fails the durable write with an ``OSError`` (the
+DRAM copy stays warm), and ``flush.spill.slow`` stalls a flush's
+background hash and spill.  The store also carries the schedule to its
+readers: the elastic trainer, the batch stager, the restore transfer
+and the watchdog consult ``store.chaos``.
+
 Not ported yet: the JAX package's shard layouts, shard-only residency,
-``bind_fabric`` and everything of ``checkpoint/fabric.py``, and its
-chaos points.
+``bind_fabric`` and everything of ``checkpoint/fabric.py``.
 """
 
 from __future__ import annotations
@@ -213,9 +220,11 @@ class HostDRAMStore:
     a resize flush landing on the same step), and disk spills use
     unique tmp names with an atomic rename."""
 
-    def __init__(self, keep: int = 2, spill_dir: Optional[str] = None):
+    def __init__(self, keep: int = 2, spill_dir: Optional[str] = None, chaos=None):
+        """``chaos``: optional ``FaultSchedule`` (see the module doc)."""
         self.keep = keep
         self.spill_dir = spill_dir
+        self.chaos = chaos
         from edl_tpu_torch import telemetry
 
         reg = telemetry.get_registry()
@@ -330,6 +339,12 @@ class HostDRAMStore:
         def work():
             try:
                 copied()
+                if self.chaos is not None:
+                    # chaos[checkpoint.save_thread]: the async save
+                    # worker dies (after its copy landed, so no copy is
+                    # left writing a pinned buffer) — the next wait()
+                    # surfaces it and a resize degrades to replay.
+                    self.chaos.maybe_raise("checkpoint.save_thread")
                 self._reserve_like(host)
                 ckpt = HostCheckpoint(
                     step=step_val,
@@ -419,6 +434,11 @@ class HostDRAMStore:
             self._save_seq += 1
             save_id = self._save_seq
         try:
+            if self.chaos is not None:
+                # chaos[checkpoint.save_thread]: the flush dies before
+                # its copy; the resize degrades to the interval
+                # checkpoint and replay.
+                self.chaos.maybe_raise("checkpoint.save_thread")
             host, copied = self._copy_to_host(state.leaves(), snapshot=False)
             copied()
         except BaseException:
@@ -444,6 +464,12 @@ class HostDRAMStore:
         def finish():
             t1 = time.perf_counter()
             try:
+                if self.chaos is not None:
+                    # chaos[flush.spill.slow]: the background hash and
+                    # spill stall; the resize window overlaps the stall
+                    # and joins it before it ends.
+                    for ev in self.chaos.due("flush.spill.slow"):
+                        time.sleep(float(ev.arg or 0.05))
                 self._reserve_like(host)
                 ckpt.digest()
                 if self.spill_dir:
@@ -559,6 +585,11 @@ class HostDRAMStore:
 
     # -- durable spill ----------------------------------------------------------
     def _spill(self, ckpt: HostCheckpoint) -> None:
+        if self.chaos is not None:
+            # chaos[checkpoint.spill]: durable-volume I/O error (full
+            # disk, detached volume) — it surfaces through wait() while
+            # the DRAM copy stays warm and restorable.
+            self.chaos.maybe_raise("checkpoint.spill", OSError)
         os.makedirs(self.spill_dir, exist_ok=True)
         with self._lock:
             self._tmp_counter += 1

@@ -37,9 +37,10 @@ The collective fabric is abstracted (``TorchProcessFabric`` over a gloo
 ``all_gather`` of the live ``torch.distributed`` world;
 ``LoopbackWorld`` barriers N threads in-process for tests) but the TCP
 data plane is the REAL one in both — unit tests count actual bytes on
-the wire.  The JAX package's chaos points (``transfer.chunk.torn``,
-``transfer.chunk.slow``) and its retired ``monolithic_broadcast_restore``
-are not ported.
+the wire.  Chaos (``chaos=``, a ``FaultSchedule``): ``transfer.chunk.slow``
+stalls the source before a chunk send, ``transfer.chunk.torn`` flips a
+byte of one received chunk, which the CRCs must catch.  The JAX
+package's retired ``monolithic_broadcast_restore`` is not ported.
 """
 
 from __future__ import annotations
@@ -318,6 +319,7 @@ def _serve_receiver(
     ckpt: HostCheckpoint,
     need: List[int],
     chunk_bytes: int,
+    chaos,
     stats: TransferStats,
     stats_lock: threading.Lock,
 ) -> None:
@@ -336,6 +338,11 @@ def _serve_receiver(
                 off = 0
                 while off < nbytes or (nbytes == 0 and off == 0):
                     part = mv[off : off + chunk_bytes]
+                    if chaos is not None:
+                        # chaos[transfer.chunk.slow]: a stalled link —
+                        # one chunk send delayed by arg seconds.
+                        for ev in chaos.due("transfer.chunk.slow"):
+                            time.sleep(float(ev.arg or 0.05))
                     conn.sendall(
                         _CHUNK_HDR.pack(
                             _MAGIC, i, off, len(part), zlib.crc32(part)
@@ -360,6 +367,7 @@ def _serve(
     needs: Dict[int, List[int]],
     chunk_bytes: int,
     timeout: float,
+    chaos,
     stats: TransferStats,
     stats_lock: threading.Lock,
 ) -> None:
@@ -395,7 +403,7 @@ def _serve(
                 t = threading.Thread(
                     target=_serve_receiver,
                     args=(
-                        conn, ckpt, needs[rank], chunk_bytes,
+                        conn, ckpt, needs[rank], chunk_bytes, chaos,
                         stats, stats_lock,
                     ),
                     daemon=True,
@@ -422,6 +430,7 @@ def _receive(
     sizes: List[int],
     src_digests: List[int],
     timeout: float,
+    chaos,
     on_leaf: Optional[Callable[[int, np.ndarray], None]],
     stats: TransferStats,
 ):
@@ -511,6 +520,11 @@ def _receive(
                         off : off + length
                     ]
                     _recv_exact(conn, region)
+                    if chaos is not None and length > 0:
+                        # chaos[transfer.chunk.torn]: a bit flip on the
+                        # wire — the CRCs below must catch it.
+                        for _ in chaos.due("transfer.chunk.torn"):
+                            region[0] ^= 0xFF
                     if zlib.crc32(region) != crc:
                         torn.add(leaf)
                     leaf_crc[leaf] = zlib.crc32(region, leaf_crc[leaf])
@@ -569,6 +583,7 @@ def stream_restore(
     *,
     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
     timeout: float = 120.0,
+    chaos=None,
     on_leaf: Optional[Callable[[int, np.ndarray], None]] = None,
 ) -> TransferResult:
     """``_stream_restore`` + telemetry publication: the engine's final
@@ -581,6 +596,7 @@ def stream_restore(
         ckpt,
         chunk_bytes=chunk_bytes,
         timeout=timeout,
+        chaos=chaos,
         on_leaf=on_leaf,
     )
     from edl_tpu_torch import telemetry
@@ -625,6 +641,7 @@ def _stream_restore(
     *,
     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
     timeout: float = 120.0,
+    chaos=None,
     on_leaf: Optional[Callable[[int, np.ndarray], None]] = None,
 ) -> TransferResult:
     """Agree on one state across the world and move only the deltas.
@@ -774,7 +791,7 @@ def _stream_restore(
         # verdict is shared).
         stats_lock = threading.Lock()
         _serve(
-            srv, ckpt, needs, chunk_bytes, timeout,
+            srv, ckpt, needs, chunk_bytes, timeout, chaos,
             stats, stats_lock,
         )
         stats.leaves_skipped = n
@@ -824,6 +841,7 @@ def _stream_restore(
         sizes,
         src_digests,
         timeout,
+        chaos,
         on_leaf,
         stats,
     )

@@ -12,11 +12,15 @@ harvest path, where the shared ``_absorb_step_failure`` recovery buries
 the world and holds for a fresh generation instead of hanging until the
 job's timeout.
 
+Chaos: ``consensus.watchdog.trip`` simulates a wedged collective
+deterministically (the fetch reports expiry without waiting), so the
+recovery path is testable in any world.
+
 The serving engine reuses the deadline machinery for its dispatch
-watchdog through ``on_trip``, which replaces the consensus trip counter
-and its ``consensus.watchdog`` event with the reuser's own accounting.
-The JAX package's chaos probe (``consensus.watchdog.trip``) is not
-ported (chaos is not).
+watchdog: ``chaos_check`` replaces the ``consensus.watchdog.trip`` probe
+(with its own ``serve.dispatch.wedged``) and ``on_trip`` replaces the
+consensus trip counter and its ``consensus.watchdog`` event with the
+reuser's own accounting.
 """
 
 from __future__ import annotations
@@ -37,26 +41,32 @@ class CollectiveWatchdog:
     (fetches run inline — the single-process default, where a wedge is
     impossible and the thread hop would be pure overhead).
 
-    ``on_trip(what, waited)``: a reuser outside the consensus lane (the
+    ``chaos``: a ``FaultSchedule`` whose ``consensus.watchdog.trip``
+    the fetch consults.  A reuser outside the consensus lane (the
     serving engine's dispatch watchdog) keeps the deadline machinery but
-    counts its trips under its own names instead of the consensus
+    swaps the names: ``chaos_check()`` replaces that probe and
+    ``on_trip(what, waited)`` counts its trips instead of the consensus
     counter and event."""
 
     def __init__(
         self,
         timeout: float = 0.0,
+        chaos=None,
         registry=None,
         recorder=None,
+        chaos_check: Optional[Callable[[], bool]] = None,
         on_trip: Optional[Callable[[str, float], None]] = None,
     ):
         from edl_tpu_torch import telemetry
 
         self.timeout = timeout
+        self.chaos = chaos
         self.registry = registry if registry is not None else telemetry.get_registry()
         self.recorder = recorder if recorder is not None else telemetry.get_recorder()
         self._m_trips = self.registry.counter(
             "edl_consensus_watchdog_trips_total"
         )
+        self.chaos_check = chaos_check
         self.on_trip = on_trip
         self.trips = 0
         self._lock = threading.Lock()
@@ -113,8 +123,24 @@ class CollectiveWatchdog:
     # -- the guarded fetch ---------------------------------------------------
     def fetch(self, fn: Callable, what: str = "step"):
         """Run ``fn`` (a blocking fetch) under the deadline.  Raises
-        ``CollectiveTimeout`` on expiry; otherwise returns ``fn()``'s
-        value (exceptions propagate unchanged)."""
+        ``CollectiveTimeout`` on expiry or a due
+        ``consensus.watchdog.trip`` chaos event; otherwise returns
+        ``fn()``'s value (exceptions propagate unchanged)."""
+        chaos = self.chaos
+        tripped = (
+            self.chaos_check()
+            if self.chaos_check is not None
+            else chaos is not None and chaos.due("consensus.watchdog.trip")
+        )
+        if tripped:
+            # chaos[consensus.watchdog.trip] (or the reuser's probe): the
+            # collective is wedged.  Report expiry without calling fn (a
+            # dead world's future has no value).
+            self._trip(what, 0.0)
+            raise CollectiveTimeout(
+                f"chaos: {what} fetch treated as wedged (deterministic "
+                "watchdog trip)"
+            )
         if self.timeout <= 0:
             return fn()
         q = self._ensure_worker()

@@ -40,8 +40,10 @@ def env_config() -> dict:
     ``EDL_JAX_COORD_PORT`` (renamed ``EDL_DIST_PORT``: the base port of
     the per-generation ``torch.distributed`` rendezvous), and keys of
     parts not ported yet:
-    ``EDL_SHARD_ONLY`` (the checkpoint fabric), ``EDL_PARALLELISM``
-    (mesh layouts) and ``EDL_CHAOS_SPEC``.
+    ``EDL_SHARD_ONLY`` (the checkpoint fabric) and ``EDL_PARALLELISM``
+    (mesh layouts).  ``EDL_CHAOS_SPEC`` (JSON ``{"seed": S, "events":
+    [{"step", "point", "arg"}, ...]}``) installs a per-pod chaos
+    schedule on the trainer's checkpoint store.
     The serving pod's keys (``serving.server.serve_run``) are ported,
     with ``EDL_SERVE_DRAIN_MS``, the drain budget, which the JAX package
     reads in ``serve_run`` itself; the engine reads
@@ -78,6 +80,8 @@ def env_config() -> dict:
             else ""
         ),
         "history_file": e.get("EDL_HISTORY_FILE", ""),
+        # per-pod deterministic chaos schedule (JSON; "" = none)
+        "chaos_spec": e.get("EDL_CHAOS_SPEC", ""),
         # flight-recorder JSONL spill ("" = ring buffer only): every
         # journaled event also appends here, so a crashed pod leaves
         # its last events on disk (``edl trace --journal`` reads it)
@@ -269,6 +273,20 @@ def make_world_builder(
     return build
 
 
+def _chaos_schedule(spec: str):
+    """The ``FaultSchedule`` an ``EDL_CHAOS_SPEC`` value describes."""
+    from edl_tpu_torch.chaos.schedule import FaultEvent, FaultSchedule
+
+    d = json.loads(spec)
+    return FaultSchedule(
+        seed=int(d.get("seed", 0)),
+        events=[
+            FaultEvent(step=int(ev["step"]), point=ev["point"], arg=ev.get("arg"))
+            for ev in d.get("events", ())
+        ],
+    )
+
+
 def run(
     entrypoint: str = "",
     steps: Optional[int] = None,
@@ -345,11 +363,15 @@ def run(
     dataset = resolve_dataset(model, data_dir or cfg["data_dir"], max(dataset_examples, gbs))
     data = ShardedDataIterator(dataset, global_batch_size=gbs, seed=seed)
     spill_dir = checkpoint_dir or cfg["checkpoint_dir"]
+    # Per-pod deterministic chaos (EDL_CHAOS_SPEC): the schedule rides
+    # the store's chaos seam, the plumbing the in-process soaks use, so
+    # a test can chaos one member of a real multi-process world.
+    chaos_sched = _chaos_schedule(cfg["chaos_spec"]) if cfg["chaos_spec"] else None
     et = ElasticTrainer(
         model,
         data,
         coordinator,
-        store=HostDRAMStore(spill_dir=spill_dir or None),
+        store=HostDRAMStore(spill_dir=spill_dir or None, chaos=chaos_sched),
         lr=lr,
         device=device,
         checkpoint_interval=(
@@ -393,6 +415,10 @@ def run(
     prev_term = signal.signal(signal.SIGTERM, _graceful_leave) if main_thread else None
 
     def on_step(rec):
+        if chaos_sched is not None:
+            # No monkey drives it: the schedule's clock rides the harvested
+            # step stream (advance is monotonic).
+            chaos_sched.advance(rec.step)
         # "t": the wall clock at the step's harvest
         log({"step": rec.step, "generation": rec.generation,
              "world_size": rec.world_size, "loss": rec.loss, "seconds": rec.seconds,

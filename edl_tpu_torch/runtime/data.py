@@ -133,17 +133,23 @@ class BatchStager:
     Staged batches are keyed by a caller-supplied ``key`` (the elastic
     runtime passes its generation) and by the ``(world, rank)`` slice:
     ``rebind`` with a new one drops everything staged for the old.  A
-    worker failure marks the step failed and the consumer falls back to
-    the synchronous ``device_batch`` — prefetch is an optimization,
-    never a correctness dependency.
+    worker failure (or chaos ``stage.batch.failed``) marks the step
+    failed and the consumer falls back to the synchronous
+    ``device_batch`` — prefetch is an optimization, never a correctness
+    dependency.  ``chaos``: a ``FaultSchedule`` whose
+    ``stage.batch.slow`` stalls the worker and whose
+    ``stage.batch.failed`` fails one staging.
     """
 
     #: how long ``get`` waits on an in-flight staging before building
     #: the batch itself (fires only if the worker thread died)
     WAIT_TIMEOUT = 60.0
 
-    def __init__(self, data: ShardedDataIterator, depth: int = 2, device: DeviceLike = None):
+    def __init__(
+        self, data: ShardedDataIterator, depth: int = 2, device: DeviceLike = None, chaos=None
+    ):
         self.data = data
+        self.chaos = chaos
         self.depth = max(1, int(depth))
         self.device = resolve_device(device)
         self._cv = threading.Condition()
@@ -288,6 +294,11 @@ class BatchStager:
                 key, (world, rank) = self._key, self._slice
                 self._inflight = step
             try:
+                chaos = self.chaos
+                if chaos is not None:
+                    for ev in chaos.due("stage.batch.slow"):
+                        time.sleep(float(ev.arg or 0.05))
+                    chaos.maybe_raise("stage.batch.failed")
                 t0 = time.perf_counter()
                 staged = self._stage(step, world, rank)
                 self._m_stage_seconds.observe(time.perf_counter() - t0)

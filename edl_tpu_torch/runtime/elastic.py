@@ -56,8 +56,16 @@ way through a resize carries the id of the decision that caused it.
 ``EDL_PROFILE_DIR`` turns on bounded ``torch.profiler`` windows around
 chosen steps and resizes (``utils/profiling.py``).
 
-Not ported yet: the sharded checkpoint fabric (``_fabric_*``) and chaos
-points.
+Chaos rides the store (``store.chaos``, a ``FaultSchedule``): the loop
+consults ``prewarm.hint.dropped`` (a dropped hint is counted in
+``dropped_prewarm_hints`` and neither recorded nor journaled) and
+``consensus.vote.delayed`` (this member's plan polls are suppressed for
+arg seconds at a retarget, and the stop must still reach it in-band),
+and hands the schedule to the batch stager, the restore transfer and the
+watchdog (``consensus.watchdog.trip``).  ``chaos.ChaosMonkey`` drives
+the membership and storage faults through ``run(on_step=...)``.
+
+Not ported yet: the sharded checkpoint fabric (``_fabric_*``).
 """
 
 from __future__ import annotations
@@ -283,6 +291,8 @@ class ElasticTrainer:
         #: coordinator prewarm hints seen (nothing to warm; see the
         #: module docstring)
         self.prewarm_hints: List[int] = []
+        #: prewarm hints dropped by chaos[prewarm.hint.dropped]
+        self.dropped_prewarm_hints = 0
 
         self.resize_events: List[ResizeEvent] = []
         self.history: List[StepRecord] = []
@@ -347,6 +357,9 @@ class ElasticTrainer:
         self._quiesce_t0: Optional[float] = None
         self._quiesce_deadline: Optional[float] = None
         self._quiesce_recorded = False
+        #: chaos[consensus.vote.delayed]: plan polls suppressed until
+        #: this monotonic deadline (a simulated poll skew)
+        self._poll_suppress_until = 0.0
 
     # -- the world ------------------------------------------------------------
     def _world_size(self) -> int:
@@ -681,6 +694,7 @@ class ElasticTrainer:
             ckpt,
             chunk_bytes=self.TRANSFER_CHUNK_BYTES,
             timeout=self.TRANSFER_TIMEOUT,
+            chaos=self.store.chaos,
         )
         stats = result.stats
         stats_dict = {
@@ -872,7 +886,10 @@ class ElasticTrainer:
             if timeout is None:
                 timeout = 120.0 if self.world_builder is not None else 0.0
             wd = self._watchdog = CollectiveWatchdog(
-                timeout=timeout, registry=self.telemetry, recorder=self.recorder
+                timeout=timeout,
+                chaos=self.store.chaos,
+                registry=self.telemetry,
+                recorder=self.recorder,
             )
         return wd.fetch(fn, what=what)
 
@@ -980,6 +997,12 @@ class ElasticTrainer:
         size announces nothing incoming."""
         if plan.prewarm == plan.world_size:
             return
+        chaos = self.store.chaos
+        if chaos is not None and chaos.due("prewarm.hint.dropped"):
+            # chaos[prewarm.hint.dropped]: the hint is lost en route; the
+            # retarget still resizes (the port warms nothing anyway).
+            self.dropped_prewarm_hints += 1
+            return
         if not self.prewarm_hints or self.prewarm_hints[-1] != plan.prewarm:
             self.prewarm_hints.append(plan.prewarm)
         key = (plan.prewarm, plan.prewarm_trace)
@@ -1018,6 +1041,15 @@ class ElasticTrainer:
             # A retarget hit a LIVE multi-member world: vote, agree on
             # stop_step in-band, and keep stepping to that boundary —
             # every member leaves the old world at the same step.
+            chaos = self.store.chaos
+            if chaos is not None:
+                for ev in chaos.due("consensus.vote.delayed"):
+                    # chaos[consensus.vote.delayed]: this member's plan
+                    # poll is suppressed; it keeps stepping, and the
+                    # stop must still reach it in-band.
+                    self._poll_suppress_until = time.monotonic() + float(ev.arg or 1.0)
+            if time.monotonic() < self._poll_suppress_until:
+                return False
             self._arm_stop(plan)
             if not self._stop_reached():
                 return False
@@ -1047,7 +1079,9 @@ class ElasticTrainer:
         if self.pipeline_depth <= 0:
             return self.data.device_batch(step, self.device, world, rank)
         if self._stager is None:
-            self._stager = BatchStager(self.data, depth=self.pipeline_depth, device=self.device)
+            self._stager = BatchStager(
+                self.data, depth=self.pipeline_depth, device=self.device, chaos=self.store.chaos
+            )
         # Keyed by generation: nothing staged for an old world is used.
         self._stager.rebind(self.generation, world, rank)
         return self._stager.get(step, horizon=horizon)
@@ -1278,8 +1312,12 @@ class ElasticTrainer:
                     if self.checkpoint_interval > 0 and done_step % self.checkpoint_interval == 0:
                         # Sanctioned sync point: interval checkpoint.
                         self._harvest_pending(0)
-                        self.store.save_async(self.state, generation=self.generation)
-                        self.coordinator.report_checkpoint(done_step)
+                        if self.state is not None:
+                            # (an on_step callback of the drain may have
+                            # dropped the state: a chaos death; the next
+                            # resize replays from the last checkpoint)
+                            self.store.save_async(self.state, generation=self.generation)
+                            self.coordinator.report_checkpoint(done_step)
                     else:
                         self._harvest_pending(self.pipeline_depth)
                     if len(self._pending) > self.pipeline_stats["max_in_flight"]:

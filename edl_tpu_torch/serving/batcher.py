@@ -25,7 +25,11 @@ drain reads the pool, ``detach`` / ``take_cold`` hand sequences off,
 for the worker to place at its next token boundary, after checking the
 weights it was produced under.
 
-Chaos injection is not ported.
+Chaos (``chaos=``, by default the engine's schedule):
+``serve.queue.full`` forces one admission rejection (the 429 path
+without a real storm), ``serve.request.slow`` stalls a dispatch by arg
+seconds, and the token batcher ticks the prefix cache's
+``serve.prefix.evicted`` at each token boundary.
 """
 
 from __future__ import annotations
@@ -117,10 +121,12 @@ class ContinuousBatcher:
         engine,
         queue_limit: int = 256,
         default_deadline_s: float = 2.0,
+        chaos=None,
     ):
         self.engine = engine
         self.queue_limit = int(queue_limit)
         self.default_deadline_s = float(default_deadline_s)
+        self.chaos = chaos if chaos is not None else engine.chaos
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._stop = False
@@ -219,7 +225,9 @@ class ContinuousBatcher:
                 # must not see it grow afterwards.
                 self._m_requests.inc(status="draining")
                 raise DrainingError()
-            if len(self._queue) >= self.queue_limit:
+            forced = self.chaos is not None and bool(self.chaos.due("serve.queue.full"))
+            if forced or len(self._queue) >= self.queue_limit:
+                # chaos[serve.queue.full] forces this branch.
                 self._m_requests.inc(status="rejected")
                 raise QueueFullError(
                     f"admission queue full ({self.queue_limit}); retry",
@@ -271,6 +279,11 @@ class ContinuousBatcher:
             batch = self._take_batch()
             if not batch:
                 continue
+            if self.chaos is not None:
+                for ev in self.chaos.due("serve.request.slow"):
+                    # chaos[serve.request.slow]: a slow dispatch inflates
+                    # the latency histogram the serving lane scales on.
+                    time.sleep(float(ev.arg or 0.05))
             rows = sum(t.rows for t in batch)
             merged = {
                 k: np.concatenate([t.inputs[k] for t in batch], axis=0)
@@ -437,6 +450,7 @@ class TokenContinuousBatcher:
         default_deadline_s: float = 30.0,
         default_max_new: int = 16,
         refresh: bool = True,
+        chaos=None,
         chunked_prefill: Optional[bool] = None,
         prefill_token_budget: int = 0,
         prefix_cache: Optional[bool] = None,
@@ -448,6 +462,7 @@ class TokenContinuousBatcher:
         #: False: another batcher sharing this engine drives refresh();
         #: this one still sees generation changes and re-prefills
         self.refresh = refresh
+        self.chaos = chaos if chaos is not None else engine.chaos
         has_chunk = getattr(engine.spec, "chunk_fn", None) is not None
         if chunked_prefill is None:
             chunked_prefill = has_chunk
@@ -475,7 +490,7 @@ class TokenContinuousBatcher:
                 )
             from edl_tpu_torch.serving.prefix import PrefixCache
 
-            self.prefix = PrefixCache(engine.pool, engine.block_tokens)
+            self.prefix = PrefixCache(engine.pool, engine.block_tokens, chaos=self.chaos)
         self._cv = threading.Condition()
         self._queue: deque = deque()
         #: FIFO of admitted, partly prefilled sequences (chunked mode):
@@ -799,7 +814,9 @@ class TokenContinuousBatcher:
             if self._draining:
                 self._m_requests.inc(status="draining")
                 raise DrainingError()
-            if len(self._queue) >= self.queue_limit:
+            forced = self.chaos is not None and bool(self.chaos.due("serve.queue.full"))
+            if forced or len(self._queue) >= self.queue_limit:
+                # chaos[serve.queue.full] forces this branch.
                 self._m_requests.inc(status="rejected")
                 raise QueueFullError(
                     f"admission queue full ({self.queue_limit}); retry",
@@ -1134,6 +1151,11 @@ class TokenContinuousBatcher:
             ready.append(t)
         if not ready:
             return 0
+        if self.chaos is not None:
+            for ev in self.chaos.due("serve.request.slow"):
+                # chaos[serve.request.slow]: a slow decode iteration
+                # inflates TTFT and the inter-token gap.
+                time.sleep(float(ev.arg or 0.05))
         bucket = self.engine.decode_bucket_for(len(ready))
         tokens = np.zeros(bucket, np.int32)
         lengths = np.zeros(bucket, np.int32)
@@ -1251,6 +1273,10 @@ class TokenContinuousBatcher:
                 self._bound_gen = w.generation
                 self._bound_step = w.step
                 self._bound_epoch = epoch
+            if self.prefix is not None and self.chaos is not None:
+                # chaos[serve.prefix.evicted]: force LRU evictions of
+                # cached prefix blocks as if allocation pressure hit.
+                self.prefix.chaos_tick()
             # 1b. adopt migrated-in sequences (checked against the
             # weights just bound: a skew re-prefills cold)
             adopted_work = self._adopt_pending(w) if self._adopted else 0

@@ -31,6 +31,11 @@ weight-swapping (counterpart of ``edl_tpu/serving/engine.py``).
   call runs under a deadline; a wedged call rebuilds the pool, bumps
   ``cache_epoch`` and raises ``DispatchWedgedError``, which the token
   batcher treats as recoverable (live sequences re-prefill).
+- **Chaos** (``chaos=``, by default the store's schedule):
+  ``serve.swap.torn`` rots the newest DRAM candidate before the next
+  refresh verifies it (rejected once, the old weights keep serving);
+  ``serve.dispatch.wedged`` trips the dispatch watchdog on the next
+  prefill, chunk or decode call, whatever ``dispatch_timeout``.
 
 Not ported yet: tp meshes and shard-only spills (the checkpoint fabric).
 """
@@ -145,6 +150,7 @@ class InferenceEngine:
         max_batch: int = 64,
         *,
         store=None,
+        chaos=None,
     ):
         if model.predict_fn is None:
             raise ValueError(
@@ -163,6 +169,7 @@ class InferenceEngine:
         from edl_tpu_torch.checkpoint import HostDRAMStore
 
         self.store = store if store is not None else HostDRAMStore()
+        self.chaos = chaos if chaos is not None else self.store.chaos
         self.buckets: Tuple[int, ...] = _pow2_buckets(1, int(max_batch))
         self.max_batch = int(max_batch)
         #: request schema: input key -> (trailing shape, dtype), probed
@@ -356,6 +363,16 @@ class InferenceEngine:
 
     def _refresh_locked(self) -> bool:
         current = self.weights_step
+        if self.chaos is not None:
+            for _ in self.chaos.due("serve.swap.torn"):
+                # chaos[serve.swap.torn]: the newest DRAM candidate's
+                # bytes rot before verification — latest_verified must
+                # reject it, and the old weights keep answering.
+                newest = self.store.latest()
+                if newest is not None and newest.leaves:
+                    from edl_tpu_torch.chaos.storage import corrupt_checkpoint
+
+                    corrupt_checkpoint(newest)
         now = time.monotonic()
         if self.store.spill_dir and now - self._last_spill_poll >= self.spill_poll_interval:
             # A training fleet in another process spills here: new steps
@@ -745,6 +762,7 @@ class DecodeEngine(InferenceEngine):
         store=None,
         max_chunk_tokens: Optional[int] = None,
         dispatch_timeout: Optional[float] = None,
+        chaos=None,
     ):
         """``dispatch_timeout``: seconds one prefill, chunk or decode call
         may take before the watchdog declares it wedged (None: the
@@ -755,7 +773,7 @@ class DecodeEngine(InferenceEngine):
                 f"model {model.name!r} declares no DecodeSpec; it can "
                 "only serve single-shot forwards (InferenceEngine)"
             )
-        super().__init__(model, device=device, max_batch=max_batch, store=store)
+        super().__init__(model, device=device, max_batch=max_batch, store=store, chaos=chaos)
         spec = model.decode
         self.spec = spec
         self.block_tokens = int(block_tokens)
@@ -809,12 +827,19 @@ class DecodeEngine(InferenceEngine):
         self.dispatch_timeout = float(dispatch_timeout)
         self._m_wedged = self.telemetry.counter("edl_serve_dispatch_wedged_total")
 
+        def _wedge_due() -> bool:
+            c = self.chaos
+            return c is not None and bool(c.due("serve.dispatch.wedged"))
+
         def _wedge_trip(what: str, waited: float) -> None:
             self._m_wedged.inc()
             self.recorder.record("serve.watchdog", {"what": what, "waited_s": round(waited, 3)})
 
         self.watchdog = CollectiveWatchdog(
-            timeout=self.dispatch_timeout, registry=self.telemetry, on_trip=_wedge_trip
+            timeout=self.dispatch_timeout,
+            registry=self.telemetry,
+            chaos_check=_wedge_due,
+            on_trip=_wedge_trip,
         )
 
     @property

@@ -35,8 +35,16 @@ Every failure degrades down a ladder, never to a hang:
 After a handoff the source keeps the client connection: a relay thread
 forwards the survivor's token and done events through the original
 ticket, so a caller streaming from the draining replica never sees the
-move.  The JAX package's chaos points are not ported; the tests plant
-each fault directly.
+move.
+
+Chaos (``chaos=``, by default the engine's schedule):
+``serve.migrate.kill`` kills the source mid-push (the dest frees its
+grant, the source walks the ladder), ``serve.migrate.torn`` corrupts one
+received chunk (the per-chunk crc refuses it and the sequence
+re-prefills cold on the survivor), ``serve.migrate.exhausted`` makes the
+dest refuse the offer, and ``serve.migrate.swap`` poisons the adoption
+key as a hot swap between grant and adoption would, so the sequence
+re-prefills instead of mixing weight generations.
 """
 
 from __future__ import annotations
@@ -262,6 +270,7 @@ def push_kv(
     port: int,
     snap: Dict[str, Any],
     t: GenerateTicket,
+    chaos=None,
     timeout: float = 10.0,
     stats: Optional[Dict[str, Any]] = None,
 ) -> int:
@@ -288,6 +297,11 @@ def push_kv(
                 off = 0
                 while off < len(mv):
                     part = mv[off : off + _CHUNK_BYTES]
+                    if chaos is not None and chaos.due("serve.migrate.kill"):
+                        # chaos[serve.migrate.kill]: the source dies
+                        # mid-push — the dest sees the peer vanish
+                        # before DONE and frees its grant.
+                        raise MigrationError("migration push killed mid-stream (chaos)")
                     # a leaf sent in one chunk reuses its leaf digest
                     crc = crcs[i] if len(part) == len(mv) else zlib.crc32(part)
                     sock.sendall(_CHUNK_HDR.pack(_MAGIC, i, off, len(part), crc))
@@ -381,6 +395,7 @@ def migrate_out(
     batcher,
     dest_address: str,
     replica_id: str = "",
+    chaos=None,
     timeout: float = 10.0,
 ) -> Dict[str, Any]:
     """Drain-side orchestration: freeze the batcher at a token boundary,
@@ -441,7 +456,9 @@ def migrate_out(
                 raise MigrationError("weights swapped under the drain")
             res: Dict[str, Any] = {}
             with span("serve.migrate/push"):
-                pushed = push_kv(host, port, snap, t, timeout=timeout, stats=res)
+                pushed = push_kv(
+                    host, port, snap, t, chaos=chaos, timeout=timeout, stats=res
+                )
             summary["migrated"] += 1
             summary["bytes"] += pushed
             summary["blocks"] += int(snap["hello"]["blocks"])
@@ -519,12 +536,14 @@ class MigrationReceiver:
         engine,
         batcher,
         replica_id: str = "",
+        chaos=None,
         host: str = "127.0.0.1",
         timeout: float = 30.0,
     ):
         self.engine = engine
         self.batcher = batcher
         self.replica_id = replica_id
+        self.chaos = chaos if chaos is not None else engine.chaos
         self.timeout = float(timeout)
         self.accepting = True
         self._stop = False
@@ -593,6 +612,10 @@ class MigrationReceiver:
                 >= eng.max_seqs
             ):
                 return "no_slot"
+            if self.chaos is not None and self.chaos.due("serve.migrate.exhausted"):
+                # chaos[serve.migrate.exhausted]: the dest pool reports
+                # exhaustion at the offer; the source re-prefills cold.
+                return "kv_exhausted"
         return None
 
     def _handle(self, conn: socket.socket) -> None:
@@ -747,6 +770,10 @@ class MigrationReceiver:
                 )
             region = memoryview(rows[leaf])[off : off + length]
             _recv_exact(conn, region)
+            if self.chaos is not None and self.chaos.due("serve.migrate.torn"):
+                # chaos[serve.migrate.torn]: one chunk corrupted in
+                # flight — the per-chunk crc must catch it.
+                region[0] ^= 0xFF
             c = zlib.crc32(region)
             if c != crc:
                 torn.add(leaf)
@@ -799,10 +826,14 @@ class MigrationReceiver:
             # adoption never samples it again and the finish meta
             # reports the source's enqueue -> first-token span.
             t.first_time = t.enqueued + float(seq["ttft_s"])
+        digest = int(hello["weights_digest"])
+        if self.chaos is not None and self.chaos.due("serve.migrate.swap"):
+            # chaos[serve.migrate.swap]: a hot swap lands between grant
+            # and adoption — the poisoned key routes the sequence to
+            # re-prefill instead of mixing weight generations.
+            digest ^= 1
         try:
-            self.batcher.adopt(
-                t, int(hello["weights_step"]), int(hello["weights_digest"]), epoch
-            )
+            self.batcher.adopt(t, int(hello["weights_step"]), digest, epoch)
         except RuntimeError as e:
             _send_frame(conn, {"ok": False, "reason": str(e)})
             self._record("kv", "refused", reason="stopped")

@@ -33,11 +33,14 @@ cache_epoch)``; ``rekey`` to a new key drops the whole index and the
 pool's cached blocks at once, so a reused block never carries another
 generation's K/V.
 
-An invalidation and a rejected collision journal a ``serve.prefix``
-flight event.
+An invalidation, a rejected collision and a forced eviction journal a
+``serve.prefix`` flight event.
 
-The JAX package's chaos points (``chaos_tick``, the forced hash skew)
-come with the chaos slice.
+**Chaos** (``chaos=``): ``serve.prefix.hash.skew`` makes the next lookup
+that finds a candidate entry treat it as a collision (outcome
+``hash_skew_rejected``, ``forced: true``); ``serve.prefix.evicted``
+(through ``chaos_tick``, at a token boundary) force-evicts arg LRU
+cached blocks (outcome ``chaos_evicted``), as allocation pressure would.
 """
 
 from __future__ import annotations
@@ -81,9 +84,10 @@ class PrefixCache:
     except ``_on_evict``, which the pool calls under its lock from
     whichever thread allocates."""
 
-    def __init__(self, pool, block_tokens: int):
+    def __init__(self, pool, block_tokens: int, chaos=None):
         self.pool = pool
         self.block_tokens = int(block_tokens)
+        self.chaos = chaos
         #: (weights generation, cache_epoch) the index was built under
         self.key: Optional[Tuple[int, int]] = None
         self._index: Dict[int, _Entry] = {}  # chain hash -> entry
@@ -160,6 +164,7 @@ class PrefixCache:
         if limit <= 0:
             return [], 0
         toks = np.ascontiguousarray(np.asarray(prompt, np.int32))
+        skew: Optional[bool] = None
         run: List[int] = []
         h_prev = _H_SEED
         for i in range(limit):
@@ -168,12 +173,19 @@ class PrefixCache:
             ent = self._index.get(h)
             if ent is None:
                 break
-            if ent.h_prev != h_prev or ent.tokens != blk:
-                # A chain-hash collision: a miss, never foreign K/V.
+            if skew is None:
+                # Consulted once per lookup, and only when a candidate
+                # entry exists: a cold lookup must not consume the trip.
+                skew = self.chaos is not None and bool(
+                    self.chaos.due("serve.prefix.hash.skew")
+                )
+            if skew or ent.h_prev != h_prev or ent.tokens != blk:
+                # A chain-hash collision (or a chaos-forced one): a
+                # miss, never foreign K/V.
                 self.stats["skew_rejected"] += 1
                 self.recorder.record(
                     "serve.prefix",
-                    {"outcome": "hash_skew_rejected", "forced": False},
+                    {"outcome": "hash_skew_rejected", "forced": bool(skew)},
                     timing={"at_block": i},
                 )
                 break
@@ -222,6 +234,21 @@ class PrefixCache:
                 added += 1
             h_prev = h
         return added
+
+    # -- chaos --------------------------------------------------------------
+    def chaos_tick(self) -> None:
+        """Fire due ``serve.prefix.evicted`` trips: force-evict LRU
+        cached blocks as if allocation pressure demanded it."""
+        if self.chaos is None:
+            return
+        for ev in self.chaos.due("serve.prefix.evicted"):
+            want = int(ev.arg or 1)
+            got = self.pool.evict_cached(want)
+            self.recorder.record(
+                "serve.prefix",
+                {"outcome": "chaos_evicted", "requested": want},
+                timing={"evicted": got},
+            )
 
 
 __all__ = ["PrefixCache", "chain_hashes"]

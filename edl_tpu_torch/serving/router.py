@@ -42,8 +42,12 @@ idiom), and ``python -m edl_tpu_torch.serving.router --coordinator
 HOST:PORT`` (routerd) runs it against a serving coordinator, configured
 by the ``EDL_ROUTE_*`` env keys (``EDL_ROUTE_PORT``,
 ``EDL_ROUTE_RETRY_BUDGET_MS``, ``EDL_ROUTE_PROBE_MS``,
-``EDL_ROUTE_EJECT_AFTER``).  The JAX package's chaos points are not
-ported.
+``EDL_ROUTE_EJECT_AFTER``).
+
+Chaos (``chaos=``): ``route.probe.fail`` fails the next active probe,
+``route.backend.refused`` refuses the next proxy attempt without
+contacting the backend, and ``route.stream.cut`` tears a relayed stream
+down after its next token line (re-driven on a survivor).
 """
 
 from __future__ import annotations
@@ -166,6 +170,7 @@ class RequestRouter:
         request_timeout_s: float = 30.0,
         max_redrives: int = 3,
         affinity_capacity: int = 4096,
+        chaos=None,
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
     ):
@@ -178,6 +183,7 @@ class RequestRouter:
         self.probe_timeout_s = float(probe_timeout_s)
         self.request_timeout_s = float(request_timeout_s)
         self.max_redrives = int(max_redrives)
+        self.chaos = chaos
         self._clock = clock
         self._sleep = sleep
         self._lock = threading.RLock()
@@ -342,23 +348,26 @@ class RequestRouter:
         if v is None:
             return False
         health: Optional[dict] = None
-        try:
-            with urllib.request.urlopen(
-                f"http://{v.address}/healthz",
-                timeout=self.probe_timeout_s,
-            ) as resp:
-                health = json.loads(resp.read())
-        except urllib.error.HTTPError as e:
-            try:
-                health = json.loads(e.read() or b"{}")
-            except ValueError:
-                health = None
-            if e.code != 503:
-                health = None
-            # a 503 healthz: alive but not ready — the vitals are
-            # real, the replica is just not routable yet
-        except Exception:
+        if self.chaos is not None and self.chaos.due("route.probe.fail"):
             health = None
+        else:
+            try:
+                with urllib.request.urlopen(
+                    f"http://{v.address}/healthz",
+                    timeout=self.probe_timeout_s,
+                ) as resp:
+                    health = json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                try:
+                    health = json.loads(e.read() or b"{}")
+                except ValueError:
+                    health = None
+                if e.code != 503:
+                    health = None
+                # a 503 healthz: alive but not ready — the vitals are
+                # real, the replica is just not routable yet
+            except Exception:
+                health = None
         with self._lock:
             if self._replicas.get(replica_id) is not v:
                 return False
@@ -539,6 +548,10 @@ class RequestRouter:
             on_attempt=self._on_attempt,
         )
 
+    def _chaos_refused(self) -> None:
+        if self.chaos is not None and self.chaos.due("route.backend.refused"):
+            raise ConnectionError("chaos: backend refused")
+
     def _resolve(self, call: Callable[[], Any]) -> Any:
         try:
             result = call()
@@ -561,6 +574,7 @@ class RequestRouter:
 
     def predict(self, req: dict) -> dict:
         def submit(view: ReplicaView, request: dict) -> dict:
+            self._chaos_refused()
             return http_call(
                 view.address, "/predict", request,
                 timeout=self.request_timeout_s,
@@ -577,6 +591,7 @@ class RequestRouter:
         hashes = self._chain_hashes(req)
 
         def submit(view: ReplicaView, request: dict) -> dict:
+            self._chaos_refused()
             try:
                 out = http_call(
                     view.address, "/generate", request,
@@ -604,6 +619,7 @@ class RequestRouter:
     def _open_stream(self, view: ReplicaView, payload: dict):
         """POST /generate stream=true; returns the live HTTPResponse.
         Raises the typed admission errors exactly like http_call."""
+        self._chaos_refused()
         req = urllib.request.Request(
             f"http://{view.address}/generate",
             data=json.dumps(payload).encode(),
@@ -744,6 +760,12 @@ class RequestRouter:
                             out["weights_step"] = ev["weights_step"]
                         emitted.append(tok)
                         emit(out)
+                        if self.chaos is not None and self.chaos.due("route.stream.cut"):
+                            # chaos[route.stream.cut]: the replica-kill
+                            # shape from the router's seat.
+                            cut = True
+                            self._on_attempt(view, REFUSED, ConnectionError("cut"))
+                            break
                     elif ev.get("restart"):
                         # the replica's own hot-swap restart: prior
                         # tokens are void for the client too

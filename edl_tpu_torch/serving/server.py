@@ -41,6 +41,12 @@ edl_tpu_torch.serving.server --checkpoint-dir D [--coordinator
 HOST:PORT]``, goes through ``serve_run`` and drains then exits on
 SIGTERM.  ``build_replica`` starts a replica on seeded weights instead
 (no checkpoint, no coordinator).
+
+Chaos: the replica's own schedule (``ServingReplica(chaos=)``, per pod)
+carries ``serve.replica.die`` (the heartbeat loop calls ``die``) and
+``serve.coord.unreachable`` (a ``blackout`` of arg seconds: no beats,
+no reports, serving goes on); the drain consults ``serve.drain.slow``
+on that schedule or else the engine's.
 """
 
 from __future__ import annotations
@@ -493,10 +499,16 @@ class ServingReplica:
         telemetry_interval: float = 5.0,
         gen_batcher=None,
         drain_budget_s: float = 30.0,
+        chaos=None,
     ):
         """``drain_budget_s``: how long a drain lets in-flight work
         finish before it gives up (``EDL_SERVE_DRAIN_MS`` through
-        ``serve_run``).  ``telemetry_interval`` <= 0 ships no reports."""
+        ``serve_run``).  ``telemetry_interval`` <= 0 ships no reports.
+        ``chaos``: a per-pod fault schedule for the replica-level points
+        (``serve.replica.die``, ``serve.coord.unreachable``), kept apart
+        from the engine's: those points name a whole replica, so a
+        schedule shared by replicas in one process would misroute
+        them."""
         self.engine = engine
         self.batcher = batcher or ContinuousBatcher(engine)
         if gen_batcher is None and getattr(engine, "spec", None) is not None:
@@ -511,6 +523,11 @@ class ServingReplica:
         self.heartbeat_interval = float(heartbeat_interval)
         self.telemetry_interval = float(telemetry_interval)
         self.drain_budget_s = float(drain_budget_s)
+        self.chaos = chaos
+        #: serve.coord.unreachable: until this monotonic time every beat
+        #: and report is skipped; serving goes on, and the beat's
+        #: KeyError -> register path reconverges on return
+        self._blackout_until = 0.0
         self.loaded = False
         self._stop_evt: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
@@ -563,7 +580,8 @@ class ServingReplica:
             from edl_tpu_torch.serving.migrate import MigrationReceiver
 
             self.migration = MigrationReceiver(
-                self.engine, self.gen_batcher, replica_id=self.replica_id
+                self.engine, self.gen_batcher, replica_id=self.replica_id,
+                chaos=getattr(self.engine, "chaos", None),
             ).start()
         if self.server is not None:
             self.server.replica = self  # POST /drain comes here
@@ -616,6 +634,14 @@ class ServingReplica:
             self.gen_batcher.stop()
         if self.migration is not None:
             self.migration.stop()
+
+    def blackout(self, seconds: float) -> None:
+        """chaos[serve.coord.unreachable]: the serving coordinator
+        vanishes for ``seconds`` — beats and reports are skipped, the
+        replica keeps serving its last verified weights, and afterwards
+        the heartbeat (or its KeyError -> register rejoin) reconverges
+        the membership."""
+        self._blackout_until = time.monotonic() + float(seconds)
 
     # -- graceful drain -----------------------------------------------------
     def _in_flight(self) -> int:
@@ -682,6 +708,7 @@ class ServingReplica:
         self.batcher.close_admission()
         if self.gen_batcher is not None:
             self.gen_batcher.close_admission()
+        chaos = self.chaos if self.chaos is not None else getattr(self.engine, "chaos", None)
         if self._drain_pending is None:
             self._drain_pending = (
                 self.gen_batcher.pending() if self.gen_batcher is not None else []
@@ -698,7 +725,7 @@ class ServingReplica:
             try:
                 migrate_summary = migrate_out(
                     self.engine, self.gen_batcher, migrate_to,
-                    replica_id=self.replica_id,
+                    replica_id=self.replica_id, chaos=chaos,
                 )
                 self._drain_migrated += (
                     migrate_summary["migrated"] + migrate_summary["fallback"]
@@ -715,7 +742,14 @@ class ServingReplica:
                      "reason": type(e).__name__},
                 )
         deadline = t0 + budget
-        while time.monotonic() < deadline and self._in_flight():
+        while time.monotonic() < deadline:
+            if chaos is not None:
+                for ev in chaos.due("serve.drain.slow"):
+                    # chaos[serve.drain.slow]: a slow drain eats into
+                    # the budget (the bounded-budget path).
+                    time.sleep(float(ev.arg or 0.05))
+            if self._in_flight() == 0:
+                break
             time.sleep(0.005)
         leftover = self._in_flight()
         drained = leftover == 0
@@ -771,6 +805,17 @@ class ServingReplica:
         def loop():
             last_report = 0.0
             while not self._stop_evt.wait(max(self.heartbeat_interval, 0.05)):
+                if self.chaos is not None:
+                    # Replica-level chaos: a kill takes the whole replica
+                    # down ungracefully; a blackout mutes the control
+                    # plane while serving goes on.
+                    if self.chaos.due("serve.replica.die"):
+                        self.die()
+                        return
+                    for ev in self.chaos.due("serve.coord.unreachable"):
+                        self.blackout(float(ev.arg or 1.0))
+                if self._blackout_until > time.monotonic():
+                    continue  # coordinator unreachable: keep serving
                 self._beat_once()
                 now = time.monotonic()
                 if self.telemetry_interval > 0 and now - last_report >= self.telemetry_interval:

@@ -180,7 +180,8 @@ CATALOG = {
     "edl_serve_prefix_evictions_total": {
         "type": "counter",
         "help": "Refcount-0 cached prefix blocks evicted back to the "
-        "free list (LRU, under allocation pressure).",
+        "free list (LRU, under allocation pressure or a chaos "
+        "serve.prefix.evicted trip).",
         "labels": (),
     },
     "edl_serve_prefix_hit_ratio": {
@@ -333,6 +334,11 @@ CATALOG = {
         "type": "counter",
         "help": "RetryPolicy exhaustions (GiveUpError raised).",
         "labels": ("op",),
+    },
+    "edl_chaos_injections_total": {
+        "type": "counter",
+        "help": "Chaos faults actually delivered, by injection point.",
+        "labels": ("point",),
     },
     # -- data-plane step agreement (step bus, watchdog) ----------------------
     "edl_consensus_words_total": {
@@ -637,8 +643,8 @@ CATALOG = {
 # Every flight-recorder event kind the port journals: the keys are a
 # subset of the JAX package's ``KNOWN_EVENT_KINDS``, and a test holds
 # every literal ``.record("<kind>"`` of the port to them.  Free-form
-# kinds are what make merged cluster timelines unreadable.  The chaos
-# and fabric kinds come with their slices.  Pure literal.
+# kinds are what make merged cluster timelines unreadable.  The fabric
+# kinds come with their slice.  Pure literal.
 KNOWN_EVENT_KINDS = {
     # training / resize lifecycle (runtime.elastic)
     "resize": "a resize barrier completed on this member",
@@ -663,6 +669,7 @@ KNOWN_EVENT_KINDS = {
     # resilience plumbing
     "retry": "transient failure absorbed by RetryPolicy",
     "retry.giveup": "RetryPolicy exhausted (GiveUpError)",
+    "chaos": "a scheduled fault was actually delivered",
     # autoscaler
     "autoscaler.decision": "one goodput-annotated decision-log entry",
     # multi-job fleet market
@@ -677,7 +684,7 @@ KNOWN_EVENT_KINDS = {
     "serve.drain": "a replica drain started / completed",
     "serve.watchdog": "a serving dispatch missed the watchdog deadline",
     "serve.migrate": "a live KV sequence moved (or fell back) at drain",
-    "serve.prefix": "the KV prefix cache invalidated / rejected",
+    "serve.prefix": "the KV prefix cache invalidated / rejected / evicted",
     # fleet front door: the request router
     "route.steer": "new work steered off a draining replica pre-503",
     "route.eject": "a replica left rotation on passive health",

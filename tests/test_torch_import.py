@@ -73,10 +73,15 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
         "assert get_model('moe_lm', tiny=True).decode.chunk_fn is not None\n"
         "from edl_tpu_torch.runtime.datasets import ingest_mnist_idx, ingest_tokens, read_idx\n"
         "from edl_tpu_torch.cli import cmd_ingest\n"
+        "for n in CHAOS:\n"
+        "    assert n in names, n\n"
+        "from edl_tpu_torch.chaos import (KNOWN_POINTS, ChaosCoordinator, ChaosHTTPCoordinator,\n"
+        "    ChaosKube, ChaosMonkey, FaultEvent, FaultSchedule, corrupt_checkpoint, corrupt_newest)\n"
+        "assert len(KNOWN_POINTS) == 41\n"
         "print(len(names))\n"
     )
     code = (f"CONTROL_PLANE = {CONTROL_PLANE!r}\nFLEET_MARKET = {FLEET_MARKET!r}\n"
-            f"MODEL_ZOO = {MODEL_ZOO!r}\n" + code)
+            f"MODEL_ZOO = {MODEL_ZOO!r}\nCHAOS = {CHAOS!r}\n" + code)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=str(ROOT), env=env,
@@ -84,7 +89,7 @@ def test_every_module_imports_with_jax_and_edl_tpu_blocked():
     )
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip().splitlines()[-1]) >= (
-        21 + len(CONTROL_PLANE) + len(FLEET_MARKET) + len(MODEL_ZOO))
+        21 + len(CONTROL_PLANE) + len(FLEET_MARKET) + len(MODEL_ZOO) + len(CHAOS))
 
 
 #: the control plane's modules (resource, cluster, autoscaler,
@@ -106,6 +111,13 @@ MODEL_ZOO = (
     "edl_tpu_torch.models.fit_a_line", "edl_tpu_torch.models.mnist",
     "edl_tpu_torch.models.resnet", "edl_tpu_torch.models.transformer",
     "edl_tpu_torch.models.layers", "edl_tpu_torch.models.moe",
+)
+
+#: the chaos harness
+CHAOS = (
+    "edl_tpu_torch.chaos", "edl_tpu_torch.chaos.schedule", "edl_tpu_torch.chaos.storage",
+    "edl_tpu_torch.chaos.membership", "edl_tpu_torch.chaos.transport",
+    "edl_tpu_torch.chaos.kubeapi", "edl_tpu_torch.chaos.monkey",
 )
 
 #: the GPU market and the serving lane

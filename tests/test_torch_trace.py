@@ -440,7 +440,39 @@ def test_every_literal_record_kind_is_registered():
 def test_the_ports_kinds_are_the_jax_kinds_of_the_ported_slices():
     assert set(KNOWN_EVENT_KINDS) <= set(JAX_KINDS)
     missing = set(JAX_KINDS) - set(KNOWN_EVENT_KINDS)
-    assert missing == {"chaos"} | {k for k in JAX_KINDS if k.startswith("fabric.")}
+    assert missing == {k for k in JAX_KINDS if k.startswith("fabric.")}
+
+
+def _literal_payloads(root, kind):
+    """(data keys, "outcome" value or None) of every ``.record("<kind>",
+    {literal dict}, ...)`` call under ``root``."""
+    out = set()
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "record" and len(node.args) >= 2
+                    and isinstance(node.args[0], ast.Constant) and node.args[0].value == kind
+                    and isinstance(node.args[1], ast.Dict)):
+                keys = tuple(sorted(k.value for k in node.args[1].keys))
+                outcome = None
+                for k, v in zip(node.args[1].keys, node.args[1].values):
+                    if k.value == "outcome" and isinstance(v, ast.Constant):
+                        outcome = v.value
+                out.add((keys, outcome))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["chaos", "serve.prefix"])
+def test_the_chaos_and_prefix_payloads_are_the_jax_packages(kind):
+    """Every literal payload the port journals under ``kind`` (its keys
+    and its outcome) is one the JAX package journals, and the other way
+    round: the chaos event and the prefix cache's ``invalidated``,
+    ``hash_skew_rejected`` and ``chaos_evicted`` outcomes."""
+    got = _literal_payloads(ROOT / "edl_tpu_torch", kind)
+    want = _literal_payloads(ROOT / "edl_tpu", kind)
+    assert got and got == want
+    if kind == "serve.prefix":
+        assert {o for _, o in got} == {"invalidated", "hash_skew_rejected", "chaos_evicted"}
 
 
 def test_the_catalog_is_a_pure_literal():
